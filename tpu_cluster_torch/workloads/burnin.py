@@ -1,0 +1,255 @@
+"""The burn-in transformer block in PyTorch: the serving subset.
+
+Port of ``tpu_cluster/workloads/burnin.py``: the same configuration,
+parameters (shapes, scales, dtypes, ``[in, out]`` layout so ``y @ W``
+reads the same in both packages) and forward numerics, on a torch
+device. ``attention="flash"`` runs the hand-written Hopper kernel
+(:mod:`tpu_cluster_torch.kernels.flash_attention`) on CUDA tensors and its
+plain version on CPU tensors.
+
+Training (``softmax_xent``, ``loss_fn``, ``train_step``, ``timed_steps``,
+the mesh and sharding) is not ported yet.
+
+Matrix-product precision is pinned at import for the whole process:
+float32 products run in full float32 (no TF32), and bf16 products reduce
+in full precision, so the f32 score and LM-head products below are the
+exact-product f32 sums the reference's ``preferred_element_type=f32``
+asks for.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import (BLOCK, SUPPORTED_HEAD_DIMS,
+                                       flash_attention)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike) -> torch.device:
+    """``None`` means the card: ``torch.device("cuda")``. The CPU is used
+    only when a caller asks for it."""
+    return torch.device("cuda" if device is None else device)
+
+
+@dataclass(frozen=True)
+class BurninConfig:
+    """Same fields and defaults as the reference's ``BurninConfig``; see
+    its comments for what each knob selects."""
+
+    vocab: int = 256
+    d_model: int = 128
+    d_ff: int = 512
+    n_heads: int = 4
+    seq: int = 64
+    batch: int = 8
+    lr: float = 1e-3
+    remat: str = "none"
+    attention: str = "xla"
+    attn_block: int = 128
+    score_dtype: str = "f32"
+    param_dtype: str = "f32"
+
+
+def init_params(cfg: BurninConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Random parameters with the reference's shapes, scales and dtypes,
+    drawn from ``generator`` (which must live on ``device``). The numbers
+    differ from ``jax.random``'s; :func:`params_from_jax` carries the
+    reference's own across."""
+    if cfg.param_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown param_dtype={cfg.param_dtype!r}")
+    dev = resolve_device(device)
+    d, f = cfg.d_model, cfg.d_ff
+    dtype = torch.bfloat16 if cfg.param_dtype == "bf16" else torch.float32
+
+    def norm(shape, scale):
+        x = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (x * scale).to(dtype)
+
+    return {
+        "embed": norm((cfg.vocab, d), 0.02),
+        "wq": norm((d, d), d ** -0.5),
+        "wk": norm((d, d), d ** -0.5),
+        "wv": norm((d, d), d ** -0.5),
+        "wo": norm((d, d), d ** -0.5),
+        "w1": norm((d, f), d ** -0.5),
+        "w2": norm((f, d), f ** -0.5),
+        "out": norm((d, cfg.vocab), d ** -0.5),
+    }
+
+
+def params_from_jax(np_params: Dict[str, Any],
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The reference's parameters (``burnin.init_params``, as numpy
+    arrays) as the port's tensors on ``device``, in the same ``[in, out]``
+    layout. bf16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    does not take) go through float32, a lossless round trip."""
+    dev = resolve_device(device)
+    out = {}
+    for name, arr in np_params.items():
+        arr = np.asarray(arr)
+        dtype = torch.bfloat16 if arr.dtype.name == "bfloat16" \
+            else torch.float32
+        # a copy: jax hands out read-only buffers
+        host = torch.from_numpy(np.array(arr, dtype=np.float32))
+        out[name] = host.to(dtype).to(dev)
+    return out
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       d_head: int, block: int) -> torch.Tensor:
+    """Causal attention by the online-softmax recurrence over KV blocks,
+    f32 running max and denominator, a ``[B, S, H, block]`` score tile
+    per step: the reference's ``lax.scan`` as a torch loop."""
+    scale = 1.0 / math.sqrt(d_head)
+    b, s, h, d = q.shape
+    if s % block != 0:
+        raise ValueError(f"seq {s} not divisible by attn_block {block}")
+    qf = q.float()
+    qpos = torch.arange(s, device=q.device)[None, :, None, None]
+    m = torch.full((b, s, h, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, s, h, 1), device=q.device)
+    o = torch.zeros((b, s, h, d), device=q.device)
+    for idx in range(s // block):
+        kblk = k[:, idx * block:(idx + 1) * block].float()
+        vblk = v[:, idx * block:(idx + 1) * block].float()
+        sblk = torch.einsum("bqhd,bkhd->bqhk", qf, kblk) * scale
+        kpos = idx * block + torch.arange(block, device=q.device)
+        sblk = torch.where(qpos >= kpos[None, None, None, :], sblk,
+                           torch.tensor(-1e30, device=q.device))
+        m_new = torch.maximum(m, sblk.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sblk - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum(
+            "bqhk,bkhd->bqhd", p.to(torch.bfloat16).float(), vblk)
+        m = m_new
+    return (o / l).to(torch.bfloat16)
+
+
+def _check_knobs(cfg: BurninConfig) -> None:
+    """The reference's knob guards, with its messages: an unrecognised
+    mode must never fall through to a default path under another label."""
+    if cfg.attention not in ("xla", "flash", "chunked"):
+        raise ValueError(f"unknown attention={cfg.attention!r}; "
+                         "expected xla|flash|chunked")
+    if cfg.score_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown score_dtype={cfg.score_dtype!r}")
+    if cfg.param_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown param_dtype={cfg.param_dtype!r}")
+    if cfg.score_dtype == "bf16" and cfg.attention != "xla":
+        raise ValueError(
+            "score_dtype='bf16' applies to the 'xla' attention path only "
+            "(flash/chunked manage score storage internally); a silent "
+            "no-op here would mislabel the measured config")
+    if cfg.remat == "attn" and cfg.attention != "xla":
+        raise ValueError(
+            "remat='attn' checkpoints the 'xla' attention block only "
+            "(flash/chunked rematerialise internally); a silent no-op "
+            "here would mislabel the measured config")
+    if cfg.attention == "chunked" and cfg.seq % cfg.attn_block != 0:
+        raise ValueError(
+            f"attention='chunked' needs seq ({cfg.seq}) divisible by "
+            f"attn_block ({cfg.attn_block})")
+
+
+def _rms(v: torch.Tensor) -> torch.Tensor:
+    # mean of squares in f32, rsqrt cast back to the input dtype
+    ms = v.float().square().mean(-1, keepdim=True)
+    return v * torch.rsqrt(ms + 1e-6).to(v.dtype)
+
+
+def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   d_head: int, score_dtype: str) -> torch.Tensor:
+    """The reference's "xla" path: materialised f32 [B,H,S,S] scores (the
+    product of the up-cast bf16 operands), an additive -1e30 causal mask,
+    softmax in f32 (or on bf16-stored scores), bf16 P V."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(d_head)
+    seq = q.shape[1]
+    mask = torch.triu(torch.full((seq, seq), -1e30, device=q.device), 1)
+    x = logits + mask
+    if score_dtype == "bf16":
+        attn = torch.softmax(x.to(torch.bfloat16), dim=-1)
+    else:
+        attn = torch.softmax(x, dim=-1).to(torch.bfloat16)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v)
+
+
+def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+            cfg: BurninConfig) -> torch.Tensor:
+    """One pre-norm transformer block + LM head: bf16 compute, f32
+    ``[B, S, vocab]`` logits. ``tokens`` is an integer ``[B, S]`` tensor
+    on the parameters' device."""
+    _check_knobs(cfg)
+    bf16 = torch.bfloat16
+    x = params["embed"][tokens.long()].to(bf16)            # [B, S, D]
+    h = cfg.n_heads
+    d_head = cfg.d_model // h
+    shape = (*x.shape[:2], h, d_head)
+
+    y = _rms(x)
+    q = (y @ params["wq"].to(bf16)).reshape(shape)
+    k = (y @ params["wk"].to(bf16)).reshape(shape)
+    v = (y @ params["wv"].to(bf16)).reshape(shape)
+    if cfg.attention == "flash":
+        o = flash_attention(q, k, v, 1.0 / math.sqrt(d_head))
+    elif cfg.attention == "chunked":
+        o = _chunked_attention(q, k, v, d_head, cfg.attn_block)
+    else:
+        o = _xla_attention(q, k, v, d_head, cfg.score_dtype)
+    x = x + o.reshape(x.shape) @ params["wo"].to(bf16)
+    y = _rms(x)
+    ff = F.gelu(y @ params["w1"].to(bf16), approximate="tanh")
+    x = x + ff @ params["w2"].to(bf16)
+    # LM head: f32 product of the up-cast bf16 operands (exact products,
+    # f32 sums), never rounded to bf16
+    return torch.einsum("bsd,dv->bsv", _rms(x).float(),
+                        params["out"].to(bf16).float())
+
+
+def standard_config() -> BurninConfig:
+    """Standard-geometry shape: d4096/f16384/h16 (d_head 256) is GPT-J-6B's
+    block geometry, with vocab 8192, as in the reference."""
+    return BurninConfig(vocab=8192, d_model=4096, d_ff=16384,
+                        n_heads=16, seq=512, batch=8)
+
+
+# The reference's crossover (measured there on a TPU, where the [B,H,S,S]
+# "xla" path wins through s4096). It is carried over unchanged so the two
+# selectors agree; the H100's own crossover is still to be measured.
+FLASH_CROSSOVER_SEQ = 8192
+
+
+def select_attention(cfg: BurninConfig, platform: str) -> str:
+    """The attention mode for ``cfg`` on ``platform`` (a torch device
+    type): the reference's selector with "cuda" where it has "tpu".
+
+    - "flash" iff on CUDA, at or past ``FLASH_CROSSOVER_SEQ``, with a head
+      width the kernel is built for (128 or 256, within the reference's
+      multiple-of-128 rule) and seq a multiple of its 64-row tile. Never
+      on the CPU.
+    - An explicit "chunked" request is honoured where seq % attn_block
+      == 0, the guard ``forward`` would raise on otherwise.
+    - Everything else: "xla".
+    """
+    if (platform == "cuda" and cfg.seq >= FLASH_CROSSOVER_SEQ
+            and cfg.d_model // cfg.n_heads in SUPPORTED_HEAD_DIMS
+            and cfg.seq % BLOCK == 0):
+        return "flash"
+    if cfg.attention == "chunked" and cfg.seq % cfg.attn_block == 0:
+        return "chunked"
+    return "xla"
+

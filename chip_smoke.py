@@ -2,23 +2,35 @@
 """Chip smoke for the PyTorch/CUDA port (``tpu_cluster_torch``) on one
 NVIDIA card. Run from the repository root: ``python3 chip_smoke.py``.
 
-It drives the port's main path — the serving engine answering HTTP
-requests with the burn-in transformer at GPT-J block width (d4096,
-f16384, h16, vocab 8192), seq 8192, 4 slots, random weights from seed 0
-— and holds every kernel on that path against its plain PyTorch version
-on the card. Phases, each fatal when it fails:
+It drives the port's two main paths with the burn-in transformer at
+GPT-J block width (d4096, f16384, h16, vocab 8192), seq 8192, random
+weights from seed 0 — the serving engine answering HTTP requests with 4
+slots, and ``burnin.run`` training at batch 1 — and holds every kernel on
+those paths against its plain PyTorch version on the card. Phases, each
+fatal when it fails:
 
 1. device: name, and name and power limit as nvidia-smi reports them;
-2. build: every kernel from ``tpu_cluster_torch/csrc`` with nvcc;
-3. kernels: each kernel against its plain version at the stated shapes
+2. build: every kernel from ``tpu_cluster_torch/csrc`` with nvcc, one
+   process per source, all started together;
+3. kernels: K1 (forward) against its plain version at the stated shapes
    and tolerances, and its time at the serving shape beside its bound,
    the plain version's time and one PyTorch library call's time;
-4. serving: ``ServingServer`` answers concurrent ``POST /v1/generate``
+4. backward kernels: K1's lse, K2 (dK, dV) and K3 (dQ) against their
+   plain versions at the stated shapes and tolerances, and their times at
+   the training shape beside their bounds, the plain versions' times and
+   one PyTorch library call's time;
+5. serving: ``ServingServer`` answers concurrent ``POST /v1/generate``
    requests; the kernel launch counts of that run must cover the engine's
    iterations; the metrics scrape must agree with the engine; one
    request's logits are recomputed with the plain attention path and
    compared with the kernel path;
-5. profile: device time by kernel for one decode iteration.
+6. training: ``burnin.run`` takes a few SGD steps on the flash path;
+   the losses must be finite and decrease, and K1, K2 and K3 must each
+   launch once a step; one step's per-parameter gradients on the flash
+   path are compared with the plain ("xla") attention path's; ms per
+   step, tokens/s and peak device memory;
+7. profile: device time by kernel for one decode iteration and for one
+   training step.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a card, or without the
@@ -28,6 +40,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -50,6 +63,37 @@ KERNEL_MEAN_ABS = 2e-4
 # rounding differences in the attention output propagate through the
 # block (the same bound as the CPU parity tests).
 LOGIT_ATOL = 5e-2
+# (B, H, S, D) of the backward checks; the last is the training shape.
+BWD_SHAPES = ((1, 16, 2048, 256), (2, 8, 1024, 128), (1, 16, 8192, 256))
+# K1's lse (f32) against the plain version's: the running max and exp2
+# against one max and exp, f32 rounding of values below 20.
+LSE_ATOL = 1e-4
+# K2's and K3's bf16 outputs against their plain versions', relative to
+# the plain magnitude (each gradient sums up to S terms): the kernels and
+# the plain versions share every rounding to bf16 (P and dS before their
+# products, the outputs) and differ only in f32 summation order and exp,
+# which may move one of those roundings by one ulp: max-abs within 1e-2 of
+# max|plain| (one ulp at the largest magnitude is at most 2^-7 of it),
+# mean-abs within 1e-3 of mean|plain|. exp(s - lse) against upstream's
+# exp(s - m) / l differs by f32 rounding only.
+BWD_MAX_REL = 1e-2
+BWD_MEAN_REL = 1e-3
+# The plain backward materialises f32 [B, H, S, S] tensors; it runs over
+# groups of heads whose such tensor stays within this many bytes.
+PLAIN_GROUP_BYTES = 2 ** 31
+# The training drive: burnin.standard_config's width at seq 8192, batch 1
+# (the reference's long-context row), a few SGD steps.
+TRAIN_SEQ = 8192
+TRAIN_BATCH = 1
+TRAIN_STEPS = 5
+# One step's per-parameter gradients, flash path against the "xla" path,
+# relative to the "xla" magnitude: the two paths round attention to bf16
+# at different places (P unnormalised against normalised), which moves
+# gradients by ~2^-8 relative an element: both ratios ~8e-3 on the CPU at
+# small widths, 4e-3 to 8.3e-3 on an H100 at this shape.
+TRAIN_GRAD_MAX_REL = 5e-2
+TRAIN_GRAD_MEAN_REL = 2e-2
+TRAIN_LOSS_ATOL = 2e-3
 # H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -107,7 +151,9 @@ def build_phase() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # the entry line names the instance (D, keys per tile)
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
 
@@ -176,6 +222,165 @@ def flash_phase(torch) -> dict:
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return record
+
+
+def by_heads(torch, fn, tensors, scale: float):
+    """A plain version over groups of heads (its f32 [B, H, S, S]
+    intermediates stay within PLAIN_GROUP_BYTES), joined along the head
+    axis: [B, S, H, D] tensors split on dim 2, [B, H, S] on dim 1."""
+    batch, seq, heads, _ = tensors[0].shape
+    group = max(1, min(heads, PLAIN_GROUP_BYTES // (batch * seq * seq * 4)))
+
+    def cut(x, h):
+        return x[:, :, h:h + group] if x.dim() == 4 else x[:, h:h + group]
+
+    parts = [fn(*(cut(x, h) for x in tensors), scale)
+             for h in range(0, heads, group)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=2)
+    return tuple(torch.cat(ps, dim=2 if ps[0].dim() == 4 else 1)
+                 for ps in zip(*parts))
+
+
+def rel_errors(got, want):
+    """(max-abs, max-abs / max|want|, mean-abs / mean|want|), in f32."""
+    err = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    max_abs = err.max().item()
+    return (max_abs, max_abs / mag.max().item(),
+            err.mean().item() / mag.mean().item())
+
+
+def backward_phase(torch) -> dict:
+    """K1's lse, K2 and K3 against their plain versions at every backward
+    check shape; timings at the training shape. Returns the K2 and K3
+    records and K1's numbers at the training shape."""
+    import torch.nn.functional as F
+
+    from tpu_cluster_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    out = {}
+    for b, h, s, d in BWD_SHAPES:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        scale = d ** -0.5
+        tag = f"B{b} H{h} S{s} D{d}"
+        o, lse = fa.flash_attention_with_lse(q, k, v, scale)
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, scale)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in (lse, dq, dk, dv)),
+              f"backward kernel output not finite at {tag}")
+
+        ref_o, ref_lse = by_heads(
+            torch, lambda *a: fa.flash_attention_reference(*a, True),
+            (q, k, v), scale)
+        lse_err = (lse - ref_lse).abs().max().item()
+        o_err = (o.float() - ref_o.float()).abs().max().item()
+        print(f"flash_attn_fwd lse {tag}: max_abs_err {lse_err:.3e} "
+              f"(tol {LSE_ATOL}); o max_abs_err {o_err:.3e} "
+              f"(tol {KERNEL_MAX_ABS})")
+        check(lse_err <= LSE_ATOL and o_err <= KERNEL_MAX_ABS,
+              f"K1 with lse disagrees with its plain version at {tag}")
+        del ref_o, ref_lse
+        inputs = (q, k, v, do, lse, di)
+        ref_dk, ref_dv = by_heads(torch, fa.flash_attention_bwd_dkv_reference,
+                                  inputs, scale)
+        ref_dq = by_heads(torch, fa.flash_attention_bwd_dq_reference,
+                          inputs, scale)
+        errs = {}
+        for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                                ("dv", dv, ref_dv)):
+            errs[name], max_rel, mean_rel = rel_errors(got, want)
+            print(f"flash_attn_bwd {name} {tag}: max_abs/max|plain| "
+                  f"{max_rel:.3e} (tol {BWD_MAX_REL}), mean_abs/mean|plain| "
+                  f"{mean_rel:.3e} (tol {BWD_MEAN_REL})")
+            check(max_rel <= BWD_MAX_REL and mean_rel <= BWD_MEAN_REL,
+                  f"{name} disagrees with its plain version at {tag}")
+        del ref_dq, ref_dk, ref_dv, dq, dk, dv
+        if (b, h, s, d) != BWD_SHAPES[-1]:
+            del q, k, v, do, o, lse, di
+            torch.cuda.empty_cache()
+            continue
+
+        # causal useful work: S(S+1)/2 (query, key) pairs per head, each a
+        # D-long product (2 flops a multiply-add) in every product
+        product = 2.0 * b * h * d * s * (s + 1) / 2
+        tensor_bytes = b * s * h * d * 2.0
+        row_bytes = b * h * s * 4.0
+
+        def bound(flops, nbytes):
+            flop_ms = flops / PEAK_BF16_FLOPS * 1e3
+            byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            return (max(flop_ms, byte_ms),
+                    "operations" if flop_ms >= byte_ms else "bytes")
+
+        fwd_ms = cuda_ms(torch, lambda: fa.flash_attention_with_lse(
+            q, k, v, scale), warmup=3, reps=10)
+        fwd_plain_ms = cuda_ms(torch, lambda: by_heads(
+            torch, lambda *a: fa.flash_attention_reference(*a, True),
+            (q, k, v), scale), warmup=1, reps=2)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        with torch.no_grad():
+            fwd_lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale), warmup=3, reps=10)
+        fwd_bound, fwd_by = bound(2 * product, 4 * tensor_bytes + row_bytes)
+        out["k1_training"] = {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                              "bound_ms": fwd_bound, "bound_by": fwd_by,
+                              "library_ms": fwd_lib_ms}
+        print(f"flash_attn_fwd with lse {tag}: kernel {fwd_ms:.3f} ms "
+              f"({2 * product / fwd_ms / 1e9:.1f} TFLOP/s), bound "
+              f"{fwd_bound:.3f} ms ({fwd_by}), plain {fwd_plain_ms:.3f} ms, "
+              f"SDPA {fwd_lib_ms:.3f} ms")
+
+        # the yardstick for the K2 + K3 pair: SDPA's backward, dQ, dK and
+        # dV together, on the same tensors (the port never calls it)
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=scale)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qt, kt, vt), dot, retain_graph=True), warmup=3, reps=10)
+        kernels = (
+            ("flash_attn_bwd_dkv", "_flash_attention_bwd_dkv", ":1121",
+             lambda: fa.flash_attention_bwd_dkv(*inputs, scale),
+             lambda: by_heads(torch, fa.flash_attention_bwd_dkv_reference,
+                              inputs, scale),
+             4, 6, max(errs["dk"], errs["dv"])),
+            ("flash_attn_bwd_dq", "_flash_attention_bwd_dq", ":1456",
+             lambda: fa.flash_attention_bwd_dq(*inputs, scale),
+             lambda: by_heads(torch, fa.flash_attention_bwd_dq_reference,
+                              inputs, scale),
+             3, 5, errs["dq"]),
+        )
+        for name, upstream, line, run, plain, n_products, n_tensors, err \
+                in kernels:
+            ms = cuda_ms(torch, run, warmup=3, reps=10)
+            plain_ms = cuda_ms(torch, plain, warmup=1, reps=2)
+            flops = n_products * product
+            bound_ms, bound_by = bound(
+                flops, n_tensors * tensor_bytes + 2 * row_bytes)
+            out[name] = {
+                "name": name, "route": "cuda",
+                "source": f"tpu_cluster_torch/csrc/{name}.cu",
+                "replaces": "jax/experimental/pallas/ops/tpu/"
+                            f"flash_attention.py{line} ({upstream}, "
+                            "reached from the VJP of "
+                            "tpu_cluster/workloads/burnin.py:220)",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+            }
+            print(f"{name} {tag}: kernel {ms:.3f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} "
+                  f"ms ({bound_by}), plain {plain_ms:.3f} ms, SDPA backward "
+                  f"(dQ, dK, dV) {library_ms:.3f} ms")
+        del sdpa, qt, kt, vt, dot, q, k, v, do, o, lse, di, inputs
+        torch.cuda.empty_cache()
+    return out
 
 
 def _post(url: str, prompt, replies, i: int) -> None:
@@ -291,22 +496,98 @@ def serving_phase(torch) -> dict:
             "engine": engine}
 
 
-def profile_phase(torch, served: dict) -> None:
-    """Device time by kernel over one decode iteration at the serving
-    shape (four full slots)."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+def training_phase(torch) -> dict:
+    """``burnin.run`` on the flash path at the standard width, seq 8192,
+    batch 1; launch counts of that run; gradients against the "xla" path;
+    ms per step. Returns the launch counts and the step's inputs."""
+    from dataclasses import replace
 
-    cfg = served["engine"].cfg
-    rng = np.random.default_rng(SEED + 1)
-    tokens = rng.integers(0, cfg.vocab, (cfg.slots, cfg.seq)).astype(np.int32)
-    pos = np.full((cfg.slots,), cfg.seq - 1, np.int32)
-    served["decode"](served["params"], tokens, pos)  # warm
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from tpu_cluster_torch.kernels import flash_attention as fa
+    from tpu_cluster_torch.workloads import burnin
+
+    cfg = replace(burnin.standard_config(), seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+    attention = burnin.select_attention(cfg, "cuda")
+    check(attention == "flash",
+          f"training config selected {attention!r}, not the kernels")
+    cfg = replace(cfg, attention=attention, remat="none")
+    kernels = (fa.flash_attention, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:  # count the main path's run only
+        fn.launches = 0
+    result = burnin.run(steps=TRAIN_STEPS, cfg=cfg)
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in kernels]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"training: burnin.run d{cfg.d_model} f{cfg.d_ff} h{cfg.n_heads} "
+          f"v{cfg.vocab} s{cfg.seq} b{cfg.batch} attention={cfg.attention} "
+          f"remat={cfg.remat}: losses {result['losses']}, "
+          f"{result['seconds']:.3f} s for {result['steps']} steps, "
+          f"loss_decreasing {result['loss_decreasing']}; launches K1 "
+          f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]}; peak device "
+          f"memory {peak_gib:.1f} GiB")
+    check(len(result["losses"]) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in result["losses"]),
+          f"training losses {result['losses']}")
+    check(result["loss_decreasing"] and result["ok"],
+          f"training loss did not decrease: {result['losses']}")
+    check(launches == [TRAIN_STEPS] * 3,
+          f"launches K1/K2/K3 {launches}, expected {TRAIN_STEPS} each (one "
+          f"attention layer, remat none)")
+
+    # the same seeded parameters and tokens as run()
+    dev = torch.device("cuda")
+    params = burnin.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    batch = (tokens, torch.roll(tokens, -1, dims=1))
+    step_ms = cuda_ms(torch, lambda: burnin.train_step(params, batch, cfg),
+                      warmup=1, reps=5)
+    tokens_per_s = cfg.batch * cfg.seq / (step_ms / 1e3)
+    print(f"training: {step_ms:.3f} ms/step (median of 5 after warm-up, "
+          f"CUDA events), {tokens_per_s:.1f} tokens/s")
+
+    loss_f, grads_f = burnin.loss_and_grads(params, batch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    loss_x, grads_x = burnin.loss_and_grads(params, batch,
+                                            replace(cfg, attention="xla"))
+    xla_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_err = abs(loss_f.item() - loss_x.item())
+    print(f"training: one step's loss flash {loss_f.item():.6f} vs xla "
+          f"{loss_x.item():.6f} (|diff| {loss_err:.2e}, tol "
+          f"{TRAIN_LOSS_ATOL}); xla-path peak {xla_peak_gib:.1f} GiB")
+    check(loss_err <= TRAIN_LOSS_ATOL, "flash-path loss disagrees with xla")
+    for name in grads_x:
+        _, max_rel, mean_rel = rel_errors(grads_f[name], grads_x[name])
+        print(f"  grad {name:5s} flash vs xla: max_abs/max|xla| "
+              f"{max_rel:.3e} (tol {TRAIN_GRAD_MAX_REL}), "
+              f"mean_abs/mean|xla| {mean_rel:.3e} (tol "
+              f"{TRAIN_GRAD_MEAN_REL})")
+        check(max_rel <= TRAIN_GRAD_MAX_REL
+              and mean_rel <= TRAIN_GRAD_MEAN_REL,
+              f"flash-path gradient of {name} disagrees with the xla path")
+    del grads_f, grads_x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "params": params, "batch": batch,
+            "cfg": cfg}
+
+
+def profile(torch, label: str, fn, top: int = 10) -> None:
+    """Device time by kernel over one call of ``fn`` (after a warm call):
+    the ``top`` largest, then the rest summed."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        served["decode"](served["params"], tokens, pos)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+
     def device_us(e) -> float:
         # the attribute's name changed across torch releases
         return float(getattr(e, "self_device_time_total", None)
@@ -315,12 +596,34 @@ def profile_phase(torch, served: dict) -> None:
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
     total = sum(device_us(e) for e in rows) / 1e3
-    print(f"profile: one decode iteration {wall_ms:.1f} ms wall, "
-          f"{total:.1f} ms device time by kernel:")
-    for e in sorted(rows, key=lambda e: -device_us(e))[:8]:
+    print(f"profile: {label} {wall_ms:.1f} ms wall, {total:.1f} ms device "
+          f"time by kernel:")
+    rows.sort(key=lambda e: -device_us(e))
+    for e in rows[:top]:
         ms = device_us(e) / 1e3
         print(f"  {ms:8.2f} ms  {100 * ms / max(total, 1e-9):5.1f}%  "
               f"x{e.count}  {e.key[:90]}")
+    rest = sum(device_us(e) for e in rows[top:]) / 1e3
+    print(f"  {rest:8.2f} ms  {100 * rest / max(total, 1e-9):5.1f}%  "
+          f"x{sum(e.count for e in rows[top:])}  the other "
+          f"{len(rows) - len(rows[:top])} kernels")
+
+
+def profile_phase(torch, served: dict, trained: dict) -> None:
+    """Device time by kernel over one decode iteration at the serving
+    shape (four full slots) and over one training step."""
+    import numpy as np
+
+    from tpu_cluster_torch.workloads import burnin
+
+    cfg = served["engine"].cfg
+    rng = np.random.default_rng(SEED + 1)
+    tokens = rng.integers(0, cfg.vocab, (cfg.slots, cfg.seq)).astype(np.int32)
+    pos = np.full((cfg.slots,), cfg.seq - 1, np.int32)
+    profile(torch, "one decode iteration",
+            lambda: served["decode"](served["params"], tokens, pos))
+    profile(torch, "one training step", lambda: burnin.train_step(
+        trained["params"], trained["batch"], trained["cfg"]), top=16)
 
 
 def main() -> int:
@@ -335,14 +638,24 @@ def main() -> int:
     import tpu_cluster_torch.workloads.serving  # noqa: F401
     name = device_phase(torch)
     build_phase()
-    record = flash_phase(torch)
+    k1 = flash_phase(torch)
+    backward = backward_phase(torch)
     served = serving_phase(torch)
-    record["launches"] = served["launches"]
+    trained = training_phase(torch)
+    k2, k3 = backward["flash_attn_bwd_dkv"], backward["flash_attn_bwd_dq"]
+    k1["launches"] = served["launches"] + trained["launches"][0]
+    k1["launches_by_path"] = {"serving": served["launches"],
+                              "training": trained["launches"][0]}
+    k1["training_shape"] = backward["k1_training"]
+    for record, n in ((k2, trained["launches"][1]),
+                      (k3, trained["launches"][2])):
+        record["launches"] = n
+        record["launches_by_path"] = {"training": n}
     try:
-        profile_phase(torch, served)
+        profile_phase(torch, served, trained)
     except Exception as err:  # noqa: BLE001 — informational phase only
         print(f"profile: not measured ({type(err).__name__}: {err})")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

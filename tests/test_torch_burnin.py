@@ -1,4 +1,4 @@
-"""The port's burn-in transformer (serving subset) against the JAX
+"""The port's burn-in transformer (forward) against the JAX
 reference: forward parity on every attention path and both parameter
 dtypes, the weight carry-over, the knob guards, the attention selector
 and the parameter initialisation.
@@ -45,9 +45,9 @@ def _setup(param_dtype, seed=0):
 
 
 # (port attention, score dtype) -> the reference attention it is held to:
-# the port's flash path runs its plain version on the CPU and is held to
-# the reference's materialised "xla" path (the reference's own flash path
-# is TPU-only).
+# the port's flash path runs its plain version on the CPU and is held here
+# to the reference's materialised "xla" path (tests/test_torch_train.py
+# holds it to the reference's own flash kernels, run in interpret mode).
 PATHS = [("xla", "f32", "xla"), ("xla", "bf16", "xla"),
          ("chunked", "f32", "chunked"), ("flash", "f32", "xla")]
 

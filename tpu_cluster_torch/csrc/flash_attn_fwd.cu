@@ -6,7 +6,11 @@
 // (its pl.pallas_call), which tpu_cluster/workloads/burnin.py:220-227 reaches
 // from forward() with attention="flash". It computes the same function, not
 // the same blocks: O = softmax(Q K^T * sm_scale + causal mask) V, with the
-// [S, S] scores never written to device memory.
+// [S, S] scores never written to device memory. For training it also
+// writes the residual the backward kernels (flash_attn_bwd_dkv.cu,
+// flash_attn_bwd_dq.cu) need: where upstream's save_residuals=True returns
+// the row max m and denominator l, this kernel stores one f32 per row,
+// lse = m + log(l), the natural-log logsumexp of the scaled scores.
 //
 // Layout: q, k, v and o are [B, S, H, D] with arbitrary batch/seq/head
 // strides (in elements) and D contiguous, the layout burnin.forward's
@@ -43,88 +47,17 @@
 // specialisation, single-buffered K/V tiles, and every warp reading the
 // whole K and V tile from shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
+
+using namespace flash;
 
 constexpr int kBlockM = 64;   // query rows per CTA
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 elements of padding per smem row
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> one register of two bf16, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy a tile of kRows rows of D bf16 (row stride `ld` elements in global
-// memory) into shared memory rows of D + kPad elements, 16 bytes a thread.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* gmem,
-                                          int64_t ld) {
-  constexpr int kChunksPerRow = D / 8;
-  constexpr int kChunks = kRows * kChunksPerRow;
-  static_assert(kChunks % kThreads == 0, "tile must split evenly");
-#pragma unroll
-  for (int i = 0; i < kChunks / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int row = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    cp_async16(smem_u32(smem + row * (D + kPad) + col),
-               gmem + static_cast<int64_t>(row) * ld + col);
-  }
-}
 
 // kBlockN keys per KV tile.
 template <int D, int kBlockN>
@@ -132,7 +65,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int64_t q_sb,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int64_t q_sb,
                           int64_t q_ss, int64_t q_sh, int64_t k_sb,
                           int64_t k_ss, int64_t k_sh, int64_t v_sb,
                           int64_t v_ss, int64_t v_sh, int64_t o_sb,
@@ -159,24 +93,18 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* k_base = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* v_base = v + b * v_sb + h * v_sh;
 
-  load_tile<D, kBlockM>(sQ, q_base, q_ss);
-  load_tile<D, kBlockN>(sK, k_base, k_ss);
+  load_tile<D, kBlockM, kThreads>(sQ, q_base, q_ss);
+  load_tile<D, kBlockN, kThreads>(sK, k_base, k_ss);
   cp_async_commit();
-  load_tile<D, kBlockN>(sV, v_base, v_ss);
+  load_tile<D, kBlockN, kThreads>(sV, v_base, v_ss);
   cp_async_commit();
 
-  // ldmatrix row addresses: lane l feeds row (l & 7) of 8x8 matrix (l >> 3).
-  const int lrow = lane & 7;
-  const int lmat = lane >> 3;
-  // A = Q rows [warp*16, +16): matrices (rows 0-7|8-15) x (cols 0-7|8-15).
-  const uint32_t q_addr = smem_u32(
-      sQ + (warp * 16 + lrow + (lmat & 1) * 8) * kLd + (lmat >> 1) * 8);
-  // B = K^T: matrices give b0, b1 of key tile n and b0, b1 of key tile n+8.
-  const uint32_t k_addr =
-      smem_u32(sK + (lrow + (lmat >> 1) * 8) * kLd + (lmat & 1) * 8);
-  // B = V (transposed load): b0, b1 of d tile n, then of d tile n+8.
-  const uint32_t v_addr =
-      smem_u32(sV + (lrow + (lmat & 1) * 8) * kLd + (lmat >> 1) * 8);
+  // ldmatrix addresses (flash_common.cuh): A = Q rows [warp*16, +16);
+  // B = K^T (keys are the rows of sK); B = V (transposed load).
+  const uint32_t q_addr =
+      smem_u32(sQ + warp * 16 * kLd + a_offset(lane, kLd));
+  const uint32_t k_addr = smem_u32(sK + b_offset(lane, kLd));
+  const uint32_t v_addr = smem_u32(sV + bt_offset(lane, kLd));
 
   float acc[kDTiles][4];
 #pragma unroll
@@ -214,8 +142,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // every warp is done reading sK
     if (j + 1 < n_kv) {
-      load_tile<D, kBlockN>(sK, k_base + static_cast<int64_t>(j + 1) * kBlockN * k_ss,
-                   k_ss);
+      load_tile<D, kBlockN, kThreads>(
+          sK, k_base + static_cast<int64_t>(j + 1) * kBlockN * k_ss, k_ss);
     }
     cp_async_commit();
 
@@ -287,8 +215,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // every warp is done reading sV
     if (j + 1 < n_kv) {
-      load_tile<D, kBlockN>(sV, v_base + static_cast<int64_t>(j + 1) * kBlockN * v_ss,
-                   v_ss);
+      load_tile<D, kBlockN, kThreads>(
+          sV, v_base + static_cast<int64_t>(j + 1) * kBlockN * v_ss, v_ss);
     }
     cp_async_commit();
   }
@@ -301,6 +229,16 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     l_tot[r] = l;
+  }
+  // Row logsumexp of the scaled scores for the backward (natural log: m
+  // is in the scores' units, l sums exp(s - m)); one lane per row.
+  if (lse != nullptr && t == 0) {
+    float* lse_row =
+        lse + (static_cast<int64_t>(b) * gridDim.y + h) * gridDim.x * kBlockM;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse_row[row0 + r * 8] = m_run[r] + logf(l_tot[r]);
+    }
   }
   __nv_bfloat16* o_base = o + b * o_sb + h * o_sh;
 #pragma unroll
@@ -317,8 +255,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D, int kBlockN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int seq, int heads, const int64_t* st,
-                   float sm_scale, cudaStream_t stream) {
+                   float* lse, int batch, int seq, int heads,
+                   const int64_t* st, float sm_scale, cudaStream_t stream) {
   const int smem =
       (kBlockM + 2 * kBlockN) * (D + kPad) * static_cast<int>(sizeof(__nv_bfloat16));
   // Above 48 KB a launch is refused unless the kernel opts in.
@@ -330,7 +268,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_attn_fwd_kernel<D, kBlockN><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      lse, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], sm_scale);
   return cudaGetLastError();
 }
@@ -342,13 +280,15 @@ extern "C" {
 // Launches the forward on `stream`; returns the cudaError_t of the launch
 // (0 on success). Strides are in elements, per tensor (batch, seq, head);
 // the head dimension must be contiguous. seq must be a multiple of 64 and
-// head_dim 128 or 256; anything else returns cudaErrorInvalidValue.
+// head_dim 128 or 256; anything else returns cudaErrorInvalidValue. `lse`
+// is null (nothing written) or a contiguous f32 [batch, heads, seq] buffer
+// that receives each row's logsumexp of the scaled scores.
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                   int batch, int seq, int heads, int head_dim, int64_t q_sb,
-                   int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                   int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                   int64_t o_sb, int64_t o_ss, int64_t o_sh, float sm_scale,
-                   void* stream) {
+                   void* lse, int batch, int seq, int heads, int head_dim,
+                   int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                   int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                   int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                   float sm_scale, void* stream) {
   if (seq <= 0 || seq % kBlockM != 0 || batch <= 0 || heads <= 0) {
     return cudaErrorInvalidValue;
   }
@@ -357,10 +297,12 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 128:
-      return launch<128, 64>(q, k, v, o, batch, seq, heads, st, sm_scale, s);
+      return launch<128, 64>(q, k, v, o, static_cast<float*>(lse), batch,
+                             seq, heads, st, sm_scale, s);
     case 256:
       // 32-key tiles: 64 spill at this width (see the note at the top)
-      return launch<256, 32>(q, k, v, o, batch, seq, heads, st, sm_scale, s);
+      return launch<256, 32>(q, k, v, o, static_cast<float*>(lse), batch,
+                             seq, heads, st, sm_scale, s);
     default:
       return cudaErrorInvalidValue;
   }

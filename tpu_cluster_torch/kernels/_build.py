@@ -27,8 +27,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# Every kernel source of the port, by stem under csrc/.
-SOURCES: Sequence[str] = ("flash_attn_fwd",)
+# Every kernel source of the port, by stem under csrc/ (each includes
+# csrc/flash_common.cuh).
+SOURCES: Sequence[str] = ("flash_attn_fwd", "flash_attn_bwd_dkv",
+                          "flash_attn_bwd_dq")
 
 NVCC_FLAGS: Sequence[str] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

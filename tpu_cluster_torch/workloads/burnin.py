@@ -1,14 +1,20 @@
-"""The burn-in transformer block in PyTorch: the serving subset.
+"""The burn-in transformer block in PyTorch: serving and single-card
+training.
 
 Port of ``tpu_cluster/workloads/burnin.py``: the same configuration,
 parameters (shapes, scales, dtypes, ``[in, out]`` layout so ``y @ W``
-reads the same in both packages) and forward numerics, on a torch
-device. ``attention="flash"`` runs the hand-written Hopper kernel
-(:mod:`tpu_cluster_torch.kernels.flash_attention`) on CUDA tensors and its
-plain version on CPU tensors.
+reads the same in both packages), forward numerics, fused cross-entropy,
+remat policies, SGD step and ``run``, on a torch device.
+``attention="flash"`` runs the hand-written Hopper kernels
+(:mod:`tpu_cluster_torch.kernels.flash_attention`: K1 forward, K2 and K3
+backward) on CUDA tensors and their plain versions on CPU tensors.
 
-Training (``softmax_xent``, ``loss_fn``, ``train_step``, ``timed_steps``,
-the mesh and sharding) is not ported yet.
+``python -m tpu_cluster_torch.workloads.burnin`` trains the default
+configuration for 5 steps on the card and prints ``run``'s JSON.
+
+Not ported yet: ``timed_steps``, the mesh, ``param_specs`` and
+``make_sharded_step`` (sharded training), and ``run``'s publication of
+FLOPs and the metrics textfile (``add_flops``/``write``).
 
 Matrix-product precision is pinned at import for the whole process:
 float32 products run in full float32 (no TF32), and bf16 products reduce
@@ -19,14 +25,19 @@ asks for.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from dataclasses import dataclass
-from typing import Any, Dict, Union
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from . import runtime_metrics
 from ..kernels.flash_attention import (BLOCK, SUPPORTED_HEAD_DIMS,
                                        flash_attention)
 
@@ -208,6 +219,11 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
         o = flash_attention(q, k, v, 1.0 / math.sqrt(d_head))
     elif cfg.attention == "chunked":
         o = _chunked_attention(q, k, v, d_head, cfg.attn_block)
+    elif cfg.remat == "attn" and torch.is_grad_enabled():
+        # recompute the attention block in the backward instead of saving
+        # its [B,H,S,S] tensors (the reference's jax.checkpoint(attn_block))
+        o = checkpoint(_xla_attention, q, k, v, d_head, cfg.score_dtype,
+                       use_reentrant=False)
     else:
         o = _xla_attention(q, k, v, d_head, cfg.score_dtype)
     x = x + o.reshape(x.shape) @ params["wo"].to(bf16)
@@ -216,8 +232,100 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     x = x + ff @ params["w2"].to(bf16)
     # LM head: f32 product of the up-cast bf16 operands (exact products,
     # f32 sums), never rounded to bf16
-    return torch.einsum("bsd,dv->bsv", _rms(x).float(),
-                        params["out"].to(bf16).float())
+    return _rms(x).float() @ params["out"].to(bf16).float()
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    """Mean token cross-entropy with the reference's hand-fused backward
+    (``burnin.py:272-305``): forward mean(logsumexp - gold logit), which
+    never materialises the [B,S,V] log-probabilities; backward the closed
+    form (softmax - onehot) * g / N in one pass, in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):  # type: ignore[override]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets[..., None].long())[..., 0]
+        ctx.save_for_backward(logits, targets, lse)
+        return (lse - gold).mean()
+
+    @staticmethod
+    def backward(ctx, g):  # type: ignore[override]
+        logits, targets, lse = ctx.saved_tensors
+        d = torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, targets[..., None].long(),
+                       torch.full_like(d[..., :1], -1.0))
+        return d.mul_(g / math.prod(logits.shape[:-1])), None
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of ``[..., V]`` logits against integer
+    targets, differentiable in the logits (see :class:`_SoftmaxXent`)."""
+    return _SoftmaxXent.apply(logits, targets)
+
+
+# Matrix products without batch dimensions: what the reference's
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps. In this
+# forward they are the projections, the FFN and the LM head (``x @ W``
+# dispatches to aten.mm); the attention products carry batch and head
+# dimensions (aten.bmm) and are recomputed, as is everything else.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_saveable)
+
+
+def loss_fn(params: Dict[str, torch.Tensor],
+            batch: Tuple[torch.Tensor, torch.Tensor],
+            cfg: BurninConfig) -> torch.Tensor:
+    """Mean cross-entropy of :func:`forward` on ``batch = (tokens,
+    targets)``, with the reference's remat policies (``burnin.py:308-318``):
+    "dots" saves only the outputs of products without batch dimensions
+    (a selective ``torch.utils.checkpoint``), "full" checkpoints the whole
+    forward, "attn" checkpoints the "xla" attention block inside
+    :func:`forward`, anything else saves everything."""
+    tokens, targets = batch
+    if cfg.remat == "dots":
+        logits = checkpoint(forward, params, tokens, cfg, use_reentrant=False,
+                            context_fn=_save_dots)
+    elif cfg.remat == "full":
+        logits = checkpoint(forward, params, tokens, cfg, use_reentrant=False)
+    else:
+        logits = forward(params, tokens, cfg)
+    return softmax_xent(logits, targets)
+
+
+def loss_and_grads(params: Dict[str, torch.Tensor],
+                   batch: Tuple[torch.Tensor, torch.Tensor],
+                   cfg: BurninConfig
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss and its gradient with respect to every parameter (each in
+    its parameter's dtype); ``params`` are not modified."""
+    leaves = {name: p.detach().requires_grad_() for name, p in params.items()}
+    loss = loss_fn(leaves, batch, cfg)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def train_step(params: Dict[str, torch.Tensor],
+               batch: Tuple[torch.Tensor, torch.Tensor],
+               cfg: BurninConfig
+               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """One plain-SGD step, ``p - lr * g`` for every parameter
+    (``burnin.py:321-324``): returns ``(new_params, loss)`` with new
+    tensors; ``params`` are not modified. Each update is computed in f32
+    and rounded once to the parameter's dtype (for bf16 parameters, the
+    single rounding XLA's fused update gives the reference)."""
+    loss, grads = loss_and_grads(params, batch, cfg)
+    with torch.no_grad():
+        new = {name: (p.float() - cfg.lr * grads[name].float()).to(p.dtype)
+               for name, p in params.items()}
+    return new, loss
 
 
 def standard_config() -> BurninConfig:
@@ -253,3 +361,45 @@ def select_attention(cfg: BurninConfig, platform: str) -> str:
         return "chunked"
     return "xla"
 
+
+def run(steps: int = 5, cfg: BurninConfig = BurninConfig(),
+        device: DeviceLike = None) -> Dict[str, Any]:
+    """Train ``cfg`` for ``steps`` SGD steps on one device: the
+    single-card counterpart of the reference's ``run``
+    (``burnin.py:687-735``), with its result keys.
+
+    Parameters come from a ``torch.Generator`` seeded 0 on the device,
+    tokens from one seeded 1, ``targets = roll(tokens, -1)``. Every step
+    fetches its loss to the host, which is the sync; each step after the
+    first (which carries the kernel builds and warm-up) runs under
+    :func:`runtime_metrics.device_busy`. The mesh is one device, so
+    ``mesh`` is ``{"data": 1, "model": 1}``. The reference's publication of
+    FLOPs and the metrics textfile (``add_flops``/``write``) waits for the
+    FLOP count of ``timed_steps`` and the port of ``runtime_metrics``'s
+    writer."""
+    dev = resolve_device(device)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    batch = (tokens, torch.roll(tokens, -1, dims=1))
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        ctx = runtime_metrics.device_busy() if i else contextlib.nullcontext()
+        with ctx:
+            params, loss = train_step(params, batch, cfg)
+            losses.append(float(loss))
+    dt = time.perf_counter() - t0
+    decreasing = losses[-1] < losses[0]
+    return {
+        "check": "burnin", "mesh": {"data": 1, "model": 1},
+        "devices": 1, "processes": 1,
+        "steps": steps, "losses": [round(l, 4) for l in losses],
+        "seconds": dt, "loss_decreasing": bool(decreasing),
+        "ok": bool(decreasing and np.isfinite(losses).all()),
+    }
+
+
+if __name__ == "__main__":
+    import json
+    print(json.dumps(run(), indent=2))

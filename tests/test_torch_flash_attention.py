@@ -202,6 +202,42 @@ def test_plain_versions_match_upstream_kernels(head_dim):
                           name)
 
 
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_plain_forward_matches_upstream_kernel_at_ragged_seq(head_dim):
+    """The plain K1 and its lse against upstream's K1 (with residuals) at
+    S = 192, which the kernel's 128-row query tiles split unevenly, with
+    B, H > 1; upstream runs 64-row query blocks over the whole KV length.
+
+    - o (bf16): XLA's exp and torch's differ by a few f32 ulps, which
+      moves bf16 roundings of P and of o, so about half the values sit one
+      bf16 ulp apart (measured: mean-abs 2.0e-3 of mean|o|): max-abs
+      1.6e-2, one ulp at magnitudes in [2, 4); mean-abs within one ulp
+      relative, 2^-8, of mean|o|.
+    - lse (f32) against m + log l: f32 rounding of exp and of the sum
+      order (|lse| < 10 here): 1e-5."""
+    shape = (2, 192, 3, head_dim)
+    scale = head_dim ** -0.5
+    q, k, v = _qkv(11, shape)
+
+    @jax.jit
+    def forward(q, k, v):
+        qt, kt, vt = (x.transpose(0, 2, 1, 3) for x in (q, k, v))
+        return upstream._flash_attention_impl(
+            qt, kt, vt, None, None, True, True, scale, 1, 64, 192, 192,
+            False)
+
+    with pltpu.force_tpu_interpret_mode():
+        o, l, m = (_np(x) for x in forward(*_bf16(q, k, v)))
+    out, lse = fa.flash_attention_reference(*_torch_bf16(q, k, v), scale,
+                                            return_lse=True)
+    assert out.shape == shape and lse.shape == (2, 3, 192)
+    np.testing.assert_allclose(lse.numpy(), m + np.log(l), rtol=0, atol=1e-5)
+    want = o.transpose(0, 2, 1, 3)
+    err = np.abs(out.float().numpy() - want)
+    assert err.max() <= 1.6e-2, err.max()
+    assert err.mean() <= 2 ** -8 * np.abs(want).mean(), err.mean()
+
+
 def test_autograd_function_matches_upstream_vjp():
     """The port's differentiable ``flash_attention`` (plain K1 with lse,
     then plain K2 and K3 on the CPU) against ``jax.vjp`` of upstream's

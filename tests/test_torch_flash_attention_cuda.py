@@ -34,10 +34,15 @@ def _card():
     return torch.device("cuda")
 
 
+# The last two have S = 64 mod 128: the kernel's last 128-row query tile
+# is half past S (rows loaded as zeros, never stored).
+SHAPES = [(2, 512, 4, 128), (2, 512, 4, 256), (1, 64, 1, 128),
+          (1, 64, 1, 256), (1, 192, 3, 256), (2, 576, 4, 128),
+          (2, 1088, 3, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,seq,heads,head_dim", [
-    (2, 512, 4, 128), (2, 512, 4, 256), (1, 64, 1, 128), (1, 64, 1, 256),
-    (1, 192, 3, 256)])
+@pytest.mark.parametrize("batch,seq,heads,head_dim", SHAPES)
 def test_kernel_matches_plain_version(batch, seq, heads, head_dim):
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -54,17 +59,35 @@ def test_kernel_matches_plain_version(batch, seq, heads, head_dim):
 
 
 @pytest.mark.cuda
-def test_kernel_takes_strided_projection_views():
+@pytest.mark.parametrize("seq,head_dim", [(256, 128), (576, 256)])
+def test_kernel_takes_strided_projection_views(seq, head_dim):
     """q, k, v as views into one fused [B, S, 3, H, D] buffer: the kernel
-    reads them through their strides, with no copies."""
+    reads them through their strides (its tensor maps), with no copies."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(1)
-    fused = torch.randn((2, 256, 3, 4, 128), generator=gen,
+    fused = torch.randn((2, seq, 3, 4, head_dim), generator=gen,
                         device=dev).to(torch.bfloat16)
     q, k, v = fused.unbind(2)
     assert not q.is_contiguous()
-    out = fa.flash_attention(q, k, v, 128 ** -0.5)
-    ref = fa.flash_attention_reference(q, k, v, 128 ** -0.5)
+    out, lse = fa.flash_attention_with_lse(q, k, v, head_dim ** -0.5)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, head_dim ** -0.5,
+                                                return_lse=True)
+    err = (out.float() - ref.float()).abs()
+    assert err.max().item() <= MAX_ABS and err.mean().item() <= MEAN_ABS
+    assert (lse - ref_lse).abs().max().item() <= LSE_ATOL
+
+
+@pytest.mark.cuda
+def test_kernel_takes_head_major_views():
+    """q, k, v as [B, S, H, D] views of [B, H, S, D] tensors: the head
+    stride exceeds the row stride."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((2, 3, 576, 256), generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    assert q.stride(2) > q.stride(1)
+    out = fa.flash_attention(q, k, v, 256 ** -0.5)
+    ref = fa.flash_attention_reference(q, k, v, 256 ** -0.5)
     err = (out.float() - ref.float()).abs()
     assert err.max().item() <= MAX_ABS and err.mean().item() <= MEAN_ABS
 
@@ -81,12 +104,8 @@ def _rel_err(got, want):
             err.mean().item() / want.float().abs().mean().item())
 
 
-BWD_SHAPES = [(2, 512, 4, 128), (2, 512, 4, 256), (1, 64, 1, 128),
-              (1, 64, 1, 256), (1, 192, 3, 256)]
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,seq,heads,head_dim", BWD_SHAPES)
+@pytest.mark.parametrize("batch,seq,heads,head_dim", SHAPES)
 def test_lse_matches_plain_version(batch, seq, heads, head_dim):
     dev = _card()
     q, k, v, _ = _inputs(dev, (batch, seq, heads, head_dim), 2)
@@ -100,7 +119,7 @@ def test_lse_matches_plain_version(batch, seq, heads, head_dim):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,seq,heads,head_dim", BWD_SHAPES)
+@pytest.mark.parametrize("batch,seq,heads,head_dim", SHAPES)
 def test_backward_kernels_match_plain_versions(batch, seq, heads, head_dim):
     dev = _card()
     scale = head_dim ** -0.5

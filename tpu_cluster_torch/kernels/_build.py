@@ -27,7 +27,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# Every kernel source of the port, by stem under csrc/ (each includes
+# Every kernel source of the port, by stem under csrc/ (the forward
+# includes csrc/hopper_common.cuh, the backward kernels
 # csrc/flash_common.cuh).
 SOURCES: Sequence[str] = ("flash_attn_fwd", "flash_attn_bwd_dkv",
                           "flash_attn_bwd_dq")
@@ -71,11 +72,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+def log_path(name: str) -> Path:
+    """The compiler log (ptxas registers, shared memory and spills per
+    kernel) kept beside the library of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log")
+
+
+def build(names: Sequence[str] = SOURCES) -> None:
     """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together. Returns each built
-    source's compiler log (ptxas register and spill lines); raises
-    RuntimeError naming the source when a compile fails."""
+    ``nvcc`` per source, all started together, keeping each compiler log
+    at :func:`log_path`; raise RuntimeError naming the source when a
+    compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -88,18 +95,16 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    logs: Dict[str, str] = {}
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
+        log_path(name).write_text(log)
         os.replace(tmp, out)  # atomic: a reader never sees a partial .so
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

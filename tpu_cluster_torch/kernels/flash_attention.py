@@ -14,8 +14,11 @@ replace the three TPU kernels of upstream JAX's
 - K2, ``flash_attn_bwd_dkv.cu`` for ``_flash_attention_bwd_dkv``: dK, dV;
 - K3, ``flash_attn_bwd_dq.cu`` for ``_flash_attention_bwd_dq``: dQ.
 
-All three use ``mma.sync`` bf16 tensor-core products with f32
-accumulation; the [S, S] scores never reach device memory. Each source's
+K1 is a warp-specialised Hopper kernel (TMA loads into a ring of
+shared-memory stages, ``wgmma`` products; ``csrc/hopper_common.cuh``); K2
+and K3 use ``mma.sync`` (``csrc/flash_common.cuh``). All three take bf16
+operands with f32 accumulation; the [S, S] scores never reach device
+memory. Each source's
 head note says what bounds it on an H100 and what its design leaves on
 the table. ``di = rowsum(o * dO)`` in f32 is plain torch between the
 forward and the backward kernels, as upstream computes it in XLA outside
@@ -42,8 +45,8 @@ import torch
 
 from . import _build
 
-# Query rows per CTA of the kernels (a multiple of their KV tiles): S must
-# be a multiple of it.
+# S must be a multiple of it: the query and key tiles of K2 and K3, and
+# half of K1's 128-row query tile (whose rows past S load as zeros).
 BLOCK = 64
 # Head widths the kernels are instantiated for (the reference selector's
 # d_head % 128 == 0, at the widths the repo's configurations use).
@@ -134,8 +137,8 @@ def flash_attention_bwd_dq_reference(
 
 
 def _rows_aligned(x: torch.Tensor) -> bool:
-    """cp.async moves 16 bytes: D contiguous and every row start 16-byte
-    aligned."""
+    """TMA (K1) and cp.async (K2, K3) move 16-byte units: D contiguous,
+    the base and every stride 16-byte aligned."""
     return (x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
 

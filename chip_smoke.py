@@ -12,8 +12,9 @@ fatal when it fails:
 1. device: name, and name and power limit as nvidia-smi reports them;
 2. build: every kernel from ``tpu_cluster_torch/csrc`` with nvcc, one
    process per source, all started together; ptxas's registers and
-   spills (none allowed in K1); K1's machine code must hold wgmma
-   (``HGMMA``) and TMA load (``UTMALDG``) instructions in both instances;
+   spills (none allowed) and each launch's shared memory; the machine
+   code of every instance of K1, K2 and K3 must hold wgmma (``HGMMA``)
+   and TMA load (``UTMALDG``) instructions;
 3. kernels: K1 (forward) against its plain version at the stated shapes
    and tolerances, and its time at the serving shape beside its bound,
    the plain version's time and one PyTorch library call's time;
@@ -175,33 +176,42 @@ def sass_counts(lib: str, ops) -> dict:
 
 
 def build_phase() -> None:
+    """Build every kernel; fail on a ptxas spill in any instance, and
+    unless every instance's machine code holds wgmma (``HGMMA``) and TMA
+    loads (``UTMALDG``). Prints each instance's registers and the dynamic
+    shared memory its launch asks for."""
+    import ctypes
+
     from tpu_cluster_torch.kernels import _build
 
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {len(_build.SOURCES)} kernel source(s) ready in "
           f"{time.perf_counter() - t0:.1f} s")
+    ops = ("HGMMA", "UTMALDG")
     for name in _build.SOURCES:
         for line in _build.log_path(name).read_text().splitlines():
-            # the entry line names the instance (D, keys per tile)
+            # the entry line names the instance (template arguments)
             if "entry function" in line or "registers" in line \
-                    or "spill" in line:
+                    or "spill" in line or "warning" in line:
                 print(f"  {name}: {line.strip()}")
-            if name == "flash_attn_fwd" and "spill" in line:
+            if "spill" in line:
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
-                      f"K1 spills registers: {line.strip()}")
-    ops = ("HGMMA", "UTMALDG")
-    counts = sass_counts(str(_build.library_path("flash_attn_fwd")), ops)
-    kernels = {k: v for k, v in counts.items() if "flash_attn_fwd_kernel" in k}
-    for kernel, n in kernels.items():
-        # the mangled name holds the instance: ...kernelILi256ELi64E...
-        instance = re.search(r"kernelILi(\d+)ELi(\d+)E", kernel)
-        label = (f"<{instance[1]}, {instance[2]}>" if instance else kernel)
-        print(f"  flash_attn_fwd_kernel{label} SASS: "
-              + ", ".join(f"{op} x{n[op]}" for op in ops))
-    check(len(kernels) == 2 and all(n[op] > 0 for n in kernels.values()
-                                    for op in ops),
-          f"K1 instances without wgmma or TMA loads: {kernels}")
+                      f"{name} spills registers: {line.strip()}")
+        lib = ctypes.CDLL(str(_build.library_path(name)))
+        smem = {d: lib.flash_attn_smem_bytes(d) for d in (128, 256)}
+        print(f"  {name}: dynamic shared memory a launch asks for: "
+              + ", ".join(f"D={d} {n} bytes" for d, n in smem.items()))
+        counts = sass_counts(str(_build.library_path(name)), ops)
+        kernels = {k: v for k, v in counts.items() if f"{name}_kernel" in k}
+        for kernel, n in kernels.items():
+            # the mangled name holds the instance: ...kernelILi256ELi64E...
+            args = re.findall(r"Li(\d+)E", kernel.split("_kernel", 1)[1])
+            print(f"  {name}_kernel<{', '.join(args)}> SASS: "
+                  + ", ".join(f"{op} x{n[op]}" for op in ops))
+        check(len(kernels) == 2  # D = 128 and 256
+              and all(n[op] > 0 for n in kernels.values() for op in ops),
+              f"{name} instances without wgmma or TMA loads: {kernels}")
 
 
 def flash_phase(torch) -> dict:

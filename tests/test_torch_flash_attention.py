@@ -126,24 +126,26 @@ def _np(x):
     return np.array(jnp.asarray(x, jnp.float32))  # a writable copy
 
 
-def _upstream_kernels(q, k, v, do, scale):
+def _upstream_kernels(q, k, v, do, scale, block_q=UP_BLOCK,
+                      block_k=UP_BLOCK):
     """Upstream's K1 with residuals (o, l, m), di, K2 (dk, dv) and K3 (dq)
-    on bf16 ``[B, S, H, D]`` inputs, in TPU interpret mode. Outputs in
+    on bf16 ``[B, S, H, D]`` inputs, in TPU interpret mode, with query
+    blocks of ``block_q`` rows and key blocks of ``block_k``. Outputs in
     upstream's [B, H, S, ...] layout."""
     @jax.jit
     def kernels(q, k, v, do):
         qt, kt, vt, dot = (x.transpose(0, 2, 1, 3) for x in (q, k, v, do))
         o, l, m = upstream._flash_attention_impl(
-            qt, kt, vt, None, None, True, True, scale, 1, UP_BLOCK, UP_BLOCK,
-            UP_BLOCK, False)
+            qt, kt, vt, None, None, True, True, scale, 1, block_q, block_k,
+            block_k, False)
         di = jnp.sum(o.astype(jnp.float32) * dot.astype(jnp.float32), -1)
         dk, dv = upstream._flash_attention_bwd_dkv(
-            qt, kt, vt, None, None, l, m, dot, di, block_q_major=UP_BLOCK,
-            block_q=UP_BLOCK, block_k_major=UP_BLOCK, block_k=UP_BLOCK,
+            qt, kt, vt, None, None, l, m, dot, di, block_q_major=block_q,
+            block_q=block_q, block_k_major=block_k, block_k=block_k,
             sm_scale=scale, causal=True)
         dq, _ = upstream._flash_attention_bwd_dq(
-            qt, kt, vt, None, None, l, m, dot, di, block_q_major=UP_BLOCK,
-            block_k_major=UP_BLOCK, block_k=UP_BLOCK, sm_scale=scale,
+            qt, kt, vt, None, None, l, m, dot, di, block_q_major=block_q,
+            block_k_major=block_k, block_k=block_k, sm_scale=scale,
             causal=True, mask_value=upstream.DEFAULT_MASK_VALUE, debug=False)
         return o, l, m, di, dq, dk, dv
 
@@ -200,6 +202,46 @@ def test_plain_versions_match_upstream_kernels(head_dim):
         assert got.dtype == torch.bfloat16 and got.is_contiguous()
         _assert_rel_close(got, want.transpose(0, 2, 1, 3), 2 ** -7, 1e-4,
                           name)
+
+
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_plain_backward_matches_upstream_kernels_at_ragged_seq(head_dim):
+    """The plain K2 and K3 against upstream's dkv and dq kernels at S = 192,
+    which K3's 128-row query tiles split unevenly, with B, H > 1 and
+    upstream query blocks of 64 rows, fed upstream's own residuals (lse =
+    m + log l) and di.
+
+    Upstream's backward kernels tile m, l and di across 128-wide key
+    blocks, so they take no S that is not a multiple of 128: they run on
+    the inputs zero-padded to S = 256 (key blocks of 128). That changes
+    nothing in the first 192 rows: a causal row sees no later key, and a
+    padded query (q = dO = 0, so dp = di = 0 and dS = 0) adds exactly zero
+    to dK and dV. Tolerances and reasons as in
+    test_plain_versions_match_upstream_kernels: exp(s - lse) against
+    exp(s - m) / l and the summation order differ by f32 rounding, which
+    may move a bf16 rounding of P, dS or the output by one ulp: max-abs
+    within 2^-7 of max|ref|, mean-abs within 1e-4 of mean|ref|."""
+    shape = (2, 192, 3, head_dim)
+    scale = head_dim ** -0.5
+    q, k, v, do = _qkv(12, shape) + _qkv(13, shape)[:1]
+    pad = [np.concatenate([x, np.zeros((2, 64, 3, head_dim), x.dtype)], 1)
+           for x in (q, k, v, do)]
+    _, l, m, di, dq, dk, dv = _upstream_kernels(*pad, scale, block_q=64,
+                                                block_k=128)
+    rows = slice(0, 192)
+    tq, tk, tv, tdo = _torch_bf16(q, k, v, do)
+    up_lse = torch.from_numpy(m[:, :, rows] + np.log(l[:, :, rows]))
+    up_di = torch.from_numpy(np.ascontiguousarray(di[:, :, rows]))
+    assert up_lse.shape == (2, 3, 192) and up_di.shape == (2, 3, 192)
+    got_dk, got_dv = fa.flash_attention_bwd_dkv_reference(
+        tq, tk, tv, tdo, up_lse, up_di, scale)
+    got_dq = fa.flash_attention_bwd_dq_reference(tq, tk, tv, tdo, up_lse,
+                                                 up_di, scale)
+    for name, got, want in (("dq", got_dq, dq), ("dk", got_dk, dk),
+                            ("dv", got_dv, dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == shape
+        _assert_rel_close(got, want[:, :, rows].transpose(0, 2, 1, 3),
+                          2 ** -7, 1e-4, name)
 
 
 @pytest.mark.parametrize("head_dim", HEAD_DIMS)

@@ -147,15 +147,19 @@ def test_backward_kernels_match_plain_versions(batch, seq, heads, head_dim):
 
 
 @pytest.mark.cuda
-def test_backward_kernels_take_strided_views():
-    """q, k, v, dO as views into fused [B, S, 4, H, D] buffers."""
+@pytest.mark.parametrize("seq,heads,head_dim", [(256, 4, 128),
+                                                (576, 3, 256)])
+def test_backward_kernels_take_strided_views(seq, heads, head_dim):
+    """q, k, v, dO as views into fused [B, S, 4, H, D] buffers, read
+    through their tensor maps; at S = 576 K3's last 128-row query tile is
+    half past S."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(4)
-    fused = torch.randn((2, 256, 4, 4, 128), generator=gen,
+    fused = torch.randn((2, seq, 4, heads, head_dim), generator=gen,
                         device=dev).to(torch.bfloat16)
     q, k, v, do = fused.unbind(2)
     assert not do.is_contiguous()
-    scale = 128 ** -0.5
+    scale = head_dim ** -0.5
     out, lse = fa.flash_attention_reference(q, k, v, scale, return_lse=True)
     di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
@@ -164,9 +168,33 @@ def test_backward_kernels_take_strided_views():
         q, k, v, do, lse, di, scale)
     want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, di,
                                                   scale)
-    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
         max_rel, mean_rel = _rel_err(got, want)
-        assert max_rel <= BWD_MAX_REL and mean_rel <= BWD_MEAN_REL
+        assert max_rel <= BWD_MAX_REL and mean_rel <= BWD_MEAN_REL, \
+            (name, max_rel, mean_rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,seq,heads,head_dim",
+                         [(2, 576, 4, 128), (2, 1088, 3, 256)])
+def test_backward_kernels_are_deterministic(batch, seq, heads, head_dim):
+    """Each output tile has one writer and no atomics: two calls on the
+    same inputs give bitwise-equal dQ, dK and dV."""
+    dev = _card()
+    scale = head_dim ** -0.5
+    q, k, v, do = _inputs(dev, (batch, seq, heads, head_dim), 9)
+    _, lse = fa.flash_attention_with_lse(q, k, v, scale)
+    di = torch.randn((batch, heads, seq), generator=torch.Generator(
+        device=dev).manual_seed(10), device=dev)
+    first = (*fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, scale),
+             fa.flash_attention_bwd_dq(q, k, v, do, lse, di, scale))
+    second = (*fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, scale),
+              fa.flash_attention_bwd_dq(q, k, v, do, lse, di, scale))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dk", "dv", "dq"), first, second):
+        assert torch.equal(a, b), name
+        assert bool(torch.isfinite(a).all()), name
 
 
 @pytest.mark.cuda

@@ -94,11 +94,6 @@ struct Layout {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int D, int kBlockN>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -327,57 +322,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library links no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The 4-D map (D, H, S, B) of a [B, S, H, D] view with element strides
-// (sb, ss, sh), read in boxes of 64 x 1 x rows x 1 with 128-byte swizzle.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
-                     int heads, int head_dim, int64_t sb, int64_t ss,
-                     int64_t sh, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kPanel, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D, int kBlockN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int batch, int seq, int heads,
@@ -435,6 +379,19 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                              seq, heads, st, sm_scale, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a launch at `head_dim` asks for, in bytes (0 for a
+// head_dim the kernel does not take).
+int flash_attn_smem_bytes(int head_dim) {
+  switch (head_dim) {
+    case 128:
+      return Layout<128, 128>::kAlloc;
+    case 256:
+      return Layout<256, 64>::kAlloc;
+    default:
+      return 0;
   }
 }
 

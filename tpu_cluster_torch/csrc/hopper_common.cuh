@@ -1,8 +1,9 @@
-// Hopper (sm_90a) primitives for warp-specialised kernels: mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and products, and register
-// reallocation between warpgroups. The flash-attention forward
-// (flash_attn_fwd.cu) is built from them; flash_common.cuh keeps the
-// mma.sync helpers of the backward kernels.
+// Hopper (sm_90a) primitives for warp-specialised kernels: mbarriers, named
+// barriers, TMA tile loads, wgmma shared-memory descriptors and products,
+// register reallocation between warpgroups, and the host-side encoding of
+// the tensor maps TMA reads through. The flash-attention forward
+// (flash_attn_fwd.cu) and backward (flash_attn_bwd_dkv.cu,
+// flash_attn_bwd_dq.cu) are built from them.
 //
 // Conventions (PTX ISA 8.x, "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate" and "Tensor Copy"):
@@ -19,14 +20,17 @@
 // - The f32 accumulator of m64nNk16 gives warp w of the warpgroup rows
 //   16w + g and 16w + g + 8 (g = lane / 4): d[4j + 0, 1] at row 16w + g and
 //   d[4j + 2, 3] at row 16w + g + 8, columns 8j + 2t and 8j + 2t + 1
-//   (t = lane % 4). The A operand from registers takes per warp the same
-//   16 x 16 fragment as mma.m16n8k16 (flash_common.cuh): so the accumulator
-//   of two neighbouring 8-column tiles, packed to bf16 in pairs, is the A
-//   fragment of one 16-wide k-step.
+//   (t = lane % 4). The A operand from registers takes per warp the 16 x 16
+//   fragment of mma.m16n8k16: a[0] holds row 16w + g, columns 2t and
+//   2t + 1 of the k-step; a[1] row 16w + g + 8, the same columns; a[2] and
+//   a[3] the same rows, columns 8 + 2t and 8 + 2t + 1. So the accumulator
+//   of two neighbouring 8-column tiles, packed to bf16 in pairs
+//   (pack_bf16), is the A fragment of one 16-wide k-step.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only: nothing is linked from libcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,6 +38,12 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two f32 rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // --- mbarrier -----------------------------------------------------------
@@ -80,6 +90,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
     if (done) return;
   }
+}
+
+// --- named barriers -----------------------------------------------------
+
+// Barrier `id` (1..15; 0 is __syncthreads) completes once `threads` threads
+// (a multiple of 32) have reached it by either call. Accesses to shared
+// memory before an arrive are visible to the threads that sync.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --- TMA ----------------------------------------------------------------
@@ -307,6 +330,61 @@ __device__ __forceinline__ void reg_alloc() {
 template <int N>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// --- host: tensor maps ----------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so a
+// library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (D, H, S, B) of a bf16 [B, S, H, D] view with element strides
+// (sb, ss, sh), read in boxes of 64 x 1 x rows x 1 (one 128-byte swizzled
+// panel of `rows` rows). The S extent is the true S: rows past it load as
+// zeros.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch,
+                            int seq, int heads, int head_dim, int64_t sb,
+                            int64_t ss, int64_t sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

@@ -27,9 +27,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# Every kernel source of the port, by stem under csrc/ (the forward
-# includes csrc/hopper_common.cuh, the backward kernels
-# csrc/flash_common.cuh).
+# Every kernel source of the port, by stem under csrc/ (each includes
+# csrc/hopper_common.cuh).
 SOURCES: Sequence[str] = ("flash_attn_fwd", "flash_attn_bwd_dkv",
                           "flash_attn_bwd_dq")
 

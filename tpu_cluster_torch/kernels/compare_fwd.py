@@ -4,7 +4,9 @@ source, in turns, on one card.
     python -m tpu_cluster_torch.kernels.compare_fwd DIR [DIR ...]
 
 Each DIR holds another ``flash_attn_fwd.cu`` with the headers it includes
-(for example the parent commit's, from ``git show``); it is built with
+(for example the parent commit's: ``python -m
+tpu_cluster_torch.kernels.compare_bwd --export HEAD build/kernels/parent``
+writes every ``csrc`` file of a git revision there); it is built with
 the same nvcc flags as the port's kernels into ``DIR/libflash_attn_fwd.so``.
 At the serving shape (B4 H16 S8192 D256, no lse) and at the training shape
 (B1, with lse), every version is first checked against the plain version
@@ -40,17 +42,43 @@ LSE_ATOL = 1e-4
 PEAK_BF16_FLOPS = 989e12
 
 
-def build_other(src_dir: Path) -> ctypes.CDLL:
-    out = src_dir / "libflash_attn_fwd.so"
+def build_other(src_dir: Path, name: str = "flash_attn_fwd") -> ctypes.CDLL:
+    """Build ``src_dir/<name>.cu`` with the port's nvcc flags into
+    ``src_dir/lib<name>.so``, print its ptxas summary, and load it."""
+    out = src_dir / f"lib{name}.so"
     proc = subprocess.run(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
-         str(src_dir / "flash_attn_fwd.cu")],
+         str(src_dir / f"{name}.cu")],
         capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise RuntimeError(f"build of {src_dir} failed:\n{proc.stdout}"
-                           f"{proc.stderr}")
+        raise RuntimeError(f"build of {src_dir}/{name}.cu failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
     summary(str(src_dir), proc.stdout + proc.stderr)
     return ctypes.CDLL(str(out))
+
+
+def export_sources(rev: str, out_dir: Path) -> None:
+    """Write every file of ``tpu_cluster_torch/csrc`` at git revision
+    ``rev`` into ``out_dir`` (run where the repository's git history is,
+    before the directory is taken to the card)."""
+    csrc = "tpu_cluster_torch/csrc"
+    names = subprocess.run(["git", "ls-tree", "--name-only", f"{rev}:{csrc}"],
+                           capture_output=True, text=True,
+                           check=True).stdout.split()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        text = subprocess.run(["git", "show", f"{rev}:{csrc}/{name}"],
+                              capture_output=True, check=True).stdout
+        (out_dir / name).write_bytes(text)
+    print(f"{rev}:{csrc} -> {out_dir}: {' '.join(names)}")
+
+
+def power_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def summary(label: str, log: str) -> None:
@@ -96,10 +124,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("compare_fwd: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(power_line())
     _build.build(["flash_attn_fwd"])
     summary("current", _build.log_path("flash_attn_fwd").read_text())
     versions = {"current": launcher(_build.load("flash_attn_fwd"))}

@@ -14,13 +14,12 @@ replace the three TPU kernels of upstream JAX's
 - K2, ``flash_attn_bwd_dkv.cu`` for ``_flash_attention_bwd_dkv``: dK, dV;
 - K3, ``flash_attn_bwd_dq.cu`` for ``_flash_attention_bwd_dq``: dQ.
 
-K1 is a warp-specialised Hopper kernel (TMA loads into a ring of
-shared-memory stages, ``wgmma`` products; ``csrc/hopper_common.cuh``); K2
-and K3 use ``mma.sync`` (``csrc/flash_common.cuh``). All three take bf16
-operands with f32 accumulation; the [S, S] scores never reach device
-memory. Each source's
-head note says what bounds it on an H100 and what its design leaves on
-the table. ``di = rowsum(o * dO)`` in f32 is plain torch between the
+All three are warp-specialised Hopper kernels: a producer warpgroup
+issues TMA loads into rings of shared-memory stages, two consumer
+warpgroups run ``wgmma`` products (``csrc/hopper_common.cuh``). All
+three take bf16 operands with f32 accumulation; the [S, S] scores never
+reach device memory. Each source's head note says what bounds it on an
+H100 and what its design leaves on the table. ``di = rowsum(o * dO)`` in f32 is plain torch between the
 forward and the backward kernels, as upstream computes it in XLA outside
 any ``pallas_call``.
 
@@ -137,8 +136,8 @@ def flash_attention_bwd_dq_reference(
 
 
 def _rows_aligned(x: torch.Tensor) -> bool:
-    """TMA (K1) and cp.async (K2, K3) move 16-byte units: D contiguous,
-    the base and every stride 16-byte aligned."""
+    """TMA (K1, K2, K3) moves 16-byte units: D contiguous, the base and
+    every stride 16-byte aligned."""
     return (x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
 
@@ -302,7 +301,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):  # type: ignore[override]
         q, k, v, out, lse = ctx.saved_tensors
         if not _rows_aligned(do):
-            do = do.contiguous()  # the kernels read rows with cp.async
+            do = do.contiguous()  # the kernels read rows by TMA
         # di = rowsum(o * dO) over D in f32 from the bf16 o and dO, as
         # upstream's _flash_attention_bwd: [B, S, H] -> [B, H, S]
         di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()

@@ -2,14 +2,17 @@
 """Chip smoke for the PyTorch/CUDA port (``tpu_cluster_torch``) on one
 NVIDIA card. Run from the repository root: ``python3 chip_smoke.py``.
 
-It drives the port's two main paths with the burn-in transformer at
-GPT-J block width (d4096, f16384, h16, vocab 8192), seq 8192, random
-weights from seed 0 — the serving engine answering HTTP requests with 4
-slots, and ``burnin.run`` training at batch 1 — and holds every kernel on
-those paths against its plain PyTorch version on the card. Phases, each
-fatal when it fails:
+It drives the port's main paths with the burn-in transformer at GPT-J
+block width (d4096, f16384, h16, vocab 8192), seq 8192, random weights
+from seed 0 — the serving engine answering HTTP requests with 4 slots,
+``burnin.run`` training at batch 1, and ``burnin.timed_steps`` timing
+that training — then the validation Job's entry point, and holds every
+kernel on those paths against its plain PyTorch version on the card.
+Phases, each fatal when it fails:
 
 1. device: name, and name and power limit as nvidia-smi reports them;
+   the card's catalogue entry (``tpu_cluster_torch/topology.py``), whose
+   data-sheet peaks every bound and MFU below divides by;
 2. build: every kernel from ``tpu_cluster_torch/csrc`` with nvcc, one
    process per source, all started together; ptxas's registers and
    spills (none allowed) and each launch's shared memory; the machine
@@ -32,7 +35,19 @@ fatal when it fails:
    launch once a step; one step's per-parameter gradients on the flash
    path are compared with the plain ("xla") attention path's; ms per
    step, tokens/s and peak device memory;
-7. profile: device time by kernel for one decode iteration and for one
+7. timed: ``burnin.flops_per_step`` of the training configuration must
+   equal the closed-form model count; ``burnin.timed_steps`` at that
+   configuration, inside a duty-cycle and a tensorcore window, must
+   launch K1, K2 and K3 once a step it ran (warm-up pair included) and
+   read an MFU of at most 1 against the catalogue's peak; TFLOP/s, MFU,
+   tokens/s and its step time beside the training phase's;
+8. metrics: ``runtime_metrics.write`` inside those windows must publish
+   the card's HBM in use (> 0) and capacity (``mem_get_info``), a duty
+   cycle above 0 and a tensorcore utilization in (0, 100];
+9. validate: ``validate.main`` for device-query, suite, matmul, psum
+   (NCCL over the card's one rank) and burnin must each exit 0 with
+   ``ok``;
+10. profile: device time by kernel for one decode iteration and for one
    training step.
 
 The line before the last is a JSON object of the kernels' numbers; the
@@ -53,6 +68,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from unittest import mock
 
 SEED = 0
 # (B, H, S, D) of the kernel checks; the last is the serving shape. The
@@ -101,9 +117,10 @@ TRAIN_STEPS = 5
 TRAIN_GRAD_MAX_REL = 5e-2
 TRAIN_GRAD_MEAN_REL = 2e-2
 TRAIN_LOSS_ATOL = 2e-3
-# H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth.
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
+# The timed drive: burnin.timed_steps at the training configuration,
+# reps pairs of TIMED_STEPS and 3 * TIMED_STEPS steps after a warm-up pair.
+TIMED_STEPS = 5
+TIMED_REPS = 3
 # The serving drive: burnin.standard_config's width at this context.
 SERVING_SEQ = 8192
 SERVING_SLOTS = 4
@@ -137,7 +154,11 @@ def cuda_ms(torch, fn, warmup: int, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_phase(torch) -> str:
+def device_phase(torch):
+    """The card's name, and its catalogue entry (data-sheet peaks: dense
+    bf16 rate and HBM bandwidth), which every bound below divides by."""
+    from tpu_cluster_torch import topology
+
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -146,7 +167,12 @@ def device_phase(torch) -> str:
     print(f"device: {name}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
     print(smi.stdout.strip().splitlines()[0])
-    return name
+    acc = topology.from_device_name(name)
+    check(acc is not None, f"no catalogue entry for {name!r}: no peak to "
+                           f"bound the kernels by")
+    print(f"catalogue: {acc.name}, data sheet {acc.peak_bf16_tflops:g} "
+          f"TFLOP/s dense bf16, {acc.hbm_bytes_per_s / 1e12:g} TB/s HBM")
+    return name, acc
 
 
 def sass_counts(lib: str, ops) -> dict:
@@ -214,7 +240,7 @@ def build_phase() -> None:
               f"{name} instances without wgmma or TMA loads: {kernels}")
 
 
-def flash_phase(torch) -> dict:
+def flash_phase(torch, acc) -> dict:
     """The flash-attention kernel against its plain version at every
     check shape; timings at the serving shape."""
     import torch.nn.functional as F
@@ -259,8 +285,8 @@ def flash_phase(torch) -> dict:
         # D-long product in Q K^T and in P V (2 flops a multiply-add)
         flops = 4.0 * b * h * d * s * (s + 1) / 2
         nbytes = 4.0 * b * s * h * d * 2  # q, k, v read once, o written
-        flop_ms = flops / PEAK_BF16_FLOPS * 1e3
-        byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        flop_ms = flops / (acc.peak_bf16_tflops * 1e12) * 1e3
+        byte_ms = nbytes / acc.hbm_bytes_per_s * 1e3
         record = {
             "name": "flash_attn_fwd", "route": "cuda",
             "source": "tpu_cluster_torch/csrc/flash_attn_fwd.cu",
@@ -308,7 +334,7 @@ def rel_errors(got, want):
             err.mean().item() / mag.mean().item())
 
 
-def backward_phase(torch) -> dict:
+def backward_phase(torch, acc) -> dict:
     """K1's lse, K2 and K3 against their plain versions at every backward
     check shape; timings at the training shape. Returns the K2 and K3
     records and K1's numbers at the training shape."""
@@ -370,8 +396,8 @@ def backward_phase(torch) -> dict:
         row_bytes = b * h * s * 4.0
 
         def bound(flops, nbytes):
-            flop_ms = flops / PEAK_BF16_FLOPS * 1e3
-            byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            flop_ms = flops / (acc.peak_bf16_tflops * 1e12) * 1e3
+            byte_ms = nbytes / acc.hbm_bytes_per_s * 1e3
             return (max(flop_ms, byte_ms),
                     "operations" if flop_ms >= byte_ms else "bytes")
 
@@ -595,12 +621,7 @@ def training_phase(torch) -> dict:
           f"attention layer, remat none)")
 
     # the same seeded parameters and tokens as run()
-    dev = torch.device("cuda")
-    params = burnin.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(1))
-    batch = (tokens, torch.roll(tokens, -1, dims=1))
+    params, batch = burnin.seeded_inputs(cfg, torch.device("cuda"))
     step_ms = cuda_ms(torch, lambda: burnin.train_step(params, batch, cfg),
                       warmup=1, reps=5)
     tokens_per_s = cfg.batch * cfg.seq / (step_ms / 1e3)
@@ -629,7 +650,134 @@ def training_phase(torch) -> dict:
     del grads_f, grads_x
     torch.cuda.empty_cache()
     return {"launches": launches, "params": params, "batch": batch,
-            "cfg": cfg}
+            "cfg": cfg, "step_ms": step_ms}
+
+
+def timed_phase(torch, acc, trained: dict) -> dict:
+    """``burnin.timed_steps`` at the training configuration on the flash
+    path, inside a duty-cycle and a tensorcore window; its FLOP count
+    against the closed form, its launch counts, its MFU; then the metrics
+    phase inside the same windows. Returns the launch counts."""
+    from tpu_cluster_torch.kernels import flash_attention as fa
+    from tpu_cluster_torch.workloads import burnin, runtime_metrics
+
+    cfg = trained["cfg"]
+    t0 = time.perf_counter()
+    flops = burnin.flops_per_step(cfg)
+    count_s = time.perf_counter() - t0
+    b, s, d, f, v = cfg.batch, cfg.seq, cfg.d_model, cfg.d_ff, cfg.vocab
+    # one block's products, forward (1) and backward (2), attention at
+    # full S^2 (Q K^T and P V)
+    closed = 3 * (2 * b * s * (4 * d * d + 2 * d * f + d * v)
+                  + 4 * b * s * s * d)
+    print(f"timed: flops_per_step {flops:,} (closed form {closed:,}), "
+          f"counted in {count_s:.2f} s")
+    check(flops == closed, f"flops_per_step {flops} != closed form {closed}")
+
+    kernels = (fa.flash_attention, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    with runtime_metrics.duty_cycle_window(), \
+            runtime_metrics.tensorcore_window():
+        for fn in kernels:  # count the main path's run only
+            fn.launches = 0
+        result = burnin.timed_steps(cfg, steps=TIMED_STEPS, reps=TIMED_REPS)
+        torch.cuda.synchronize()
+        launches = [fn.launches for fn in kernels]
+        metrics_phase(torch)
+    ran = 4 * TIMED_STEPS * (TIMED_REPS + 1)  # lo + hi = 4 steps' worth
+    mfu = result["tflops"] / acc.peak_bf16_tflops
+    span_steps = 2 * TIMED_STEPS if "tflops_spread" in result \
+        else 3 * TIMED_STEPS
+    step_ms = result["seconds"] / span_steps * 1e3
+    print(f"timed: burnin.timed_steps steps={TIMED_STEPS} reps={TIMED_REPS}: "
+          f"{result['tflops']:.2f} TFLOP/s, MFU {mfu:.4f} of the data "
+          f"sheet's {acc.peak_bf16_tflops:g}, spread "
+          f"{result.get('tflops_spread', result.get('note'))}, "
+          f"{result['tokens_per_s']:.1f} tokens/s, points "
+          f"{result['points']}; launches K1 {launches[0]}, K2 "
+          f"{launches[1]}, K3 {launches[2]} ({ran} steps run)")
+    print(f"timed: {step_ms:.3f} ms a step (delta over {span_steps} steps) "
+          f"against the training phase's {trained['step_ms']:.3f} ms (CUDA "
+          f"events): ratio {step_ms / trained['step_ms']:.4f}")
+    check(launches == [ran] * 3,
+          f"timed_steps launches K1/K2/K3 {launches}, expected {ran} each")
+    check(0 < mfu <= 1.0, f"timed_steps MFU {mfu} outside (0, 1]")
+    return {"launches": launches}
+
+
+def metrics_phase(torch) -> None:
+    """``runtime_metrics.write`` into a temporary file, inside the timed
+    phase's windows: HBM gauges from the allocator and ``mem_get_info``, and
+    measured duty-cycle and tensorcore gauges."""
+    import tempfile
+
+    from tpu_cluster_torch.workloads import runtime_metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "metrics.prom")
+        with mock.patch.dict(os.environ, {"TPU_METRICS_FILE": path}):
+            written = runtime_metrics.write(runtime_metrics.resolved_path())
+        check(written == path, f"metrics not written: {written}")
+        with open(path, encoding="utf-8") as fh:
+            lines = fh.read().splitlines()
+    values = {}
+    for line in lines:
+        if not line.startswith("#"):
+            key, val = line.rsplit(" ", 1)
+            values[key] = float(val)
+    used = values.get('tpu_hbm_used_bytes{chip="0"}', 0.0)
+    limit = values.get('tpu_hbm_limit_bytes{chip="0"}', 0.0)
+    duty = values.get('tpu_duty_cycle_percent{chip="0"}', 0.0)
+    tc = values.get('tpu_tensorcore_utilization_percent{chip="0"}', 0.0)
+    source = values.get('tpu_hbm_source{source="memory_stats"}')
+    capacity = torch.cuda.mem_get_info(0)[1]
+    print(f"metrics: tpu_hbm_used_bytes {used:.0f}, tpu_hbm_limit_bytes "
+          f"{limit:.0f} (mem_get_info {capacity}), source memory_stats "
+          f"{source}, tpu_duty_cycle_percent {duty}, "
+          f"tpu_tensorcore_utilization_percent {tc}")
+    check(used > 0, "tpu_hbm_used_bytes missing or 0")
+    check(limit == capacity, "tpu_hbm_limit_bytes is not the card's capacity")
+    check(source == 1.0, "HBM gauges not from memory_stats")
+    check(duty > 0, "tpu_duty_cycle_percent missing or 0")
+    check(0 < tc <= 100, f"tpu_tensorcore_utilization_percent {tc} outside "
+                         f"(0, 100]")
+
+
+def validate_phase(torch) -> None:
+    """The validation Job's entry point, in this process, mode by mode."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_cluster_torch.workloads import validate
+
+    runs = (("device-query", [f"--expect-devices={torch.cuda.device_count()}"]),
+            ("suite", []), ("matmul", ["--matmul-dim=4096"]), ("psum", []),
+            ("burnin", []))
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(
+            os.environ, {"TPU_METRICS_FILE": os.path.join(tmp, "v.prom")}):
+        for mode, extra in runs:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = validate.main([f"--mode={mode}", *extra])
+            wall = time.perf_counter() - t0
+            doc = json.loads(out.getvalue())
+            detail = ""
+            if mode == "matmul":
+                detail = (f", {doc['tflops']:.1f} TFLOP/s bf16 at "
+                          f"{doc['m']} (a smoke number: one pass of "
+                          f"{doc['iters']} chained products)")
+            elif mode == "psum":
+                detail = f", {doc['devices']} rank(s)"
+            elif mode == "suite":
+                detail = f", wall_s {doc['wall_s']:.3f}"
+            elif mode == "burnin":
+                detail = f", losses {doc['losses']}"
+            print(f"validate --mode={mode}: rc {rc}, ok {doc['ok']}, "
+                  f"{wall:.2f} s{detail}")
+            check(rc == 0 and doc["ok"] is True,
+                  f"validate --mode={mode} failed: {doc}")
 
 
 def profile(torch, label: str, fn, top: int = 10) -> None:
@@ -694,21 +842,22 @@ def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     # the port must sit beside this script; nothing is printed without it
     import tpu_cluster_torch.workloads.serving  # noqa: F401
-    name = device_phase(torch)
+    name, acc = device_phase(torch)
     build_phase()
-    k1 = flash_phase(torch)
-    backward = backward_phase(torch)
+    k1 = flash_phase(torch, acc)
+    backward = backward_phase(torch, acc)
     served = serving_phase(torch)
     trained = training_phase(torch)
+    timed = timed_phase(torch, acc, trained)
+    validate_phase(torch)
     k2, k3 = backward["flash_attn_bwd_dkv"], backward["flash_attn_bwd_dq"]
-    k1["launches"] = served["launches"] + trained["launches"][0]
-    k1["launches_by_path"] = {"serving": served["launches"],
-                              "training": trained["launches"][0]}
+    k1["launches_by_path"] = {"serving": served["launches"]}
     k1["training_shape"] = backward["k1_training"]
-    for record, n in ((k2, trained["launches"][1]),
-                      (k3, trained["launches"][2])):
-        record["launches"] = n
-        record["launches_by_path"] = {"training": n}
+    for i, record in enumerate((k1, k2, k3)):
+        by_path = record.setdefault("launches_by_path", {})
+        by_path["training"] = trained["launches"][i]
+        by_path["timed_steps"] = timed["launches"][i]
+        record["launches"] = sum(by_path.values())
     profile_phase(torch, served, trained)
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,32 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_topology_and_timing_are_copies_not_reexports():
+    """The port's catalogue and estimator work with the reference package
+    unimportable, and every public name they hold is defined in the
+    port (a re-export would name ``tpu_cluster``)."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'tpu_cluster'):\n"
+        "    sys.modules[name] = None\n"
+        "from tpu_cluster_torch import topology\n"
+        "from tpu_cluster_torch.workloads import timing\n"
+        "for mod in (topology, timing):\n"
+        "    for name in dir(mod):\n"
+        "        owner = getattr(getattr(mod, name), '__module__', None)\n"
+        "        assert owner is None or not owner.startswith('tpu_cluster.'),"
+        " (mod.__name__, name, owner)\n"
+        "assert timing.paired_two_point([(1.0, 3.0)], 2e12, 3e12)['tflops'] "
+        "== 1.0\n"
+        "assert topology.from_device_name('NVIDIA H100 80GB HBM3') is "
+        "topology.get('h100-sxm5-80gb')\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_default_engine_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

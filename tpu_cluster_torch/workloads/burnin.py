@@ -11,10 +11,11 @@ backward) on CUDA tensors and their plain versions on CPU tensors.
 
 ``python -m tpu_cluster_torch.workloads.burnin`` trains the default
 configuration for 5 steps on the card and prints ``run``'s JSON.
+:func:`timed_steps` measures training throughput with the shared
+two-point estimator, against the model FLOPs of :func:`flops_per_step`.
 
-Not ported yet: ``timed_steps``, the mesh, ``param_specs`` and
-``make_sharded_step`` (sharded training), and ``run``'s publication of
-FLOPs and the metrics textfile (``add_flops``/``write``).
+Not ported yet: the mesh, ``param_specs`` and ``make_sharded_step``
+(sharded training).
 
 Matrix-product precision is pinned at import for the whole process:
 float32 products run in full float32 (no TF32), and bf16 products reduce
@@ -28,7 +29,7 @@ from __future__ import annotations
 import contextlib
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Tuple, Union
 
 import numpy as np
@@ -36,8 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+from torch.utils.flop_counter import FlopCounterMode
 
-from . import runtime_metrics
+from . import runtime_metrics, timing
 from ..kernels.flash_attention import (BLOCK, SUPPORTED_HEAD_DIMS,
                                        flash_attention)
 
@@ -72,33 +74,41 @@ class BurninConfig:
     param_dtype: str = "f32"
 
 
+def _param_table(cfg: BurninConfig
+                 ) -> Tuple[torch.dtype, Dict[str, Tuple[Tuple[int, int],
+                                                          float]]]:
+    """The parameters' dtype, and each one's shape and init scale."""
+    if cfg.param_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown param_dtype={cfg.param_dtype!r}")
+    d, f = cfg.d_model, cfg.d_ff
+    dtype = torch.bfloat16 if cfg.param_dtype == "bf16" else torch.float32
+    return dtype, {
+        "embed": ((cfg.vocab, d), 0.02),
+        "wq": ((d, d), d ** -0.5),
+        "wk": ((d, d), d ** -0.5),
+        "wv": ((d, d), d ** -0.5),
+        "wo": ((d, d), d ** -0.5),
+        "w1": ((d, f), d ** -0.5),
+        "w2": ((f, d), f ** -0.5),
+        "out": ((d, cfg.vocab), d ** -0.5),
+    }
+
+
 def init_params(cfg: BurninConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Random parameters with the reference's shapes, scales and dtypes,
     drawn from ``generator`` (which must live on ``device``). The numbers
     differ from ``jax.random``'s; :func:`params_from_jax` carries the
     reference's own across."""
-    if cfg.param_dtype not in ("f32", "bf16"):
-        raise ValueError(f"unknown param_dtype={cfg.param_dtype!r}")
+    dtype, table = _param_table(cfg)
     dev = resolve_device(device)
-    d, f = cfg.d_model, cfg.d_ff
-    dtype = torch.bfloat16 if cfg.param_dtype == "bf16" else torch.float32
 
     def norm(shape, scale):
         x = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
         return (x * scale).to(dtype)
 
-    return {
-        "embed": norm((cfg.vocab, d), 0.02),
-        "wq": norm((d, d), d ** -0.5),
-        "wk": norm((d, d), d ** -0.5),
-        "wv": norm((d, d), d ** -0.5),
-        "wo": norm((d, d), d ** -0.5),
-        "w1": norm((d, f), d ** -0.5),
-        "w2": norm((f, d), f ** -0.5),
-        "out": norm((d, cfg.vocab), d ** -0.5),
-    }
+    return {name: norm(shape, scale) for name, (shape, scale) in table.items()}
 
 
 def params_from_jax(np_params: Dict[str, Any],
@@ -362,8 +372,113 @@ def select_attention(cfg: BurninConfig, platform: str) -> str:
     return "xla"
 
 
+def flops_per_step(cfg: BurninConfig) -> int:
+    """Model FLOPs of one training step of ``cfg``: the matrix products of
+    one ``loss_and_grads`` (forward and backward; the SGD update's
+    elementwise work is not counted), as
+    ``torch.utils.flop_counter.FlopCounterMode`` counts them, on the
+    ``meta`` device (shapes only, nothing computed or allocated).
+
+    The count is taken with ``remat="none"`` and ``attention="xla"``
+    whatever ``cfg`` says: recomputation adds no model work, and the flash
+    kernels (ctypes launches) are invisible to the counter. So attention
+    counts at full S^2, as the reference's ``xla`` path does, and the
+    denominator of every rate is the model's work, independent of how it
+    was implemented. It equals the closed form
+    ``3 * (2*B*S*(4*D^2 + 2*D*F + D*V) + 4*B*S^2*D)``."""
+    cfg = replace(cfg, remat="none", attention="xla")
+    dtype, table = _param_table(cfg)
+    meta = torch.device("meta")
+    params = {name: torch.empty(shape, dtype=dtype, device=meta)
+              for name, (shape, _) in table.items()}
+    tokens = torch.empty((cfg.batch, cfg.seq), dtype=torch.int64,
+                         device=meta)
+    with FlopCounterMode(display=False) as counter:
+        loss_and_grads(params, (tokens, tokens), cfg)
+    return int(counter.get_total_flops())
+
+
+def seeded_inputs(cfg: BurninConfig, dev: torch.device
+                   ) -> Tuple[Dict[str, torch.Tensor],
+                              Tuple[torch.Tensor, torch.Tensor]]:
+    """Parameters from a generator seeded 0 on ``dev``, tokens from one
+    seeded 1, ``targets = roll(tokens, -1)``."""
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    return params, (tokens, torch.roll(tokens, -1, dims=1))
+
+
+def timed_steps(cfg: BurninConfig, steps: int = 20, reps: int = 5,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """Training-step throughput on one device, by the shared two-point
+    estimator: the counterpart of the reference's ``timed_steps``
+    (``burnin.py:556-684``), with its result keys.
+
+    A run is ``n`` calls of :func:`train_step` from the same initial
+    parameters (as the reference's non-donated ones), ending in a fetch
+    of the last step's loss to the host, which is the sync. The reference
+    runs its steps inside one ``lax.scan`` so that per-step dispatch
+    cannot swamp them; here each step is dispatched from Python, and the
+    dispatch and fetch constants cancel in each pair's delta. One warm-up
+    pair (kernel builds, allocator) runs first and is not timed; then
+    ``reps`` pairs of ``steps`` and ``3 * steps`` steps, each run inside
+    :func:`runtime_metrics.device_busy` and followed by
+    :func:`runtime_metrics.add_flops` of its FLOPs; then
+    :func:`timing.paired_two_point`. FLOPs per step come from
+    :func:`flops_per_step` (model work, remat and attention path aside);
+    one device, so ``flops_scope`` is ``"global"``.
+    """
+    dev = resolve_device(device)
+    flops = flops_per_step(cfg)
+    params, batch = seeded_inputs(cfg, dev)
+
+    def run_once(n: int, record: bool = True) -> float:
+        ctx = runtime_metrics.device_busy() if record \
+            else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with ctx:
+            p = params
+            for _ in range(n):
+                p, loss = train_step(p, batch, cfg)
+            float(loss)  # the sync
+        elapsed = time.perf_counter() - t0
+        if record:
+            runtime_metrics.add_flops(flops * n)
+        return elapsed
+
+    run_once(steps, record=False), run_once(3 * steps, record=False)
+    pairs = [(run_once(steps), run_once(3 * steps)) for _ in range(reps)]
+    extra_steps = 2 * steps
+    est = timing.paired_two_point(pairs, flops * extra_steps,
+                                  flops * 3 * steps)
+    timed_span = est["delta_s"]
+    # tokens/s over the span the rate was computed on: the delta's extra
+    # steps normally, the full long run in the degenerate fallback
+    span_steps = extra_steps if "spread" in est else 3 * steps
+    out: Dict[str, Any] = {
+        "steps": steps,
+        "seconds": timed_span,
+        "flops_per_step": float(flops),
+        "flops_scope": "global",
+        "estimator": est["estimator"],
+        "reps": reps,
+        "points": [{"steps": steps, "seconds": round(est["lo_s"], 4)},
+                   {"steps": 3 * steps, "seconds": round(est["hi_s"], 4)}],
+        "tflops": est["tflops"] if flops else 0.0,
+        "tokens_per_s": (cfg.batch * cfg.seq * span_steps / timed_span
+                         if timed_span > 0 else 0.0),
+    }
+    if "spread" in est:
+        out["tflops_spread"] = est["spread"]
+    if "note" in est:
+        out["note"] = est["note"]
+    return out
+
+
 def run(steps: int = 5, cfg: BurninConfig = BurninConfig(),
-        device: DeviceLike = None) -> Dict[str, Any]:
+        device: DeviceLike = None,
+        publish_interval_s: float = 5.0) -> Dict[str, Any]:
     """Train ``cfg`` for ``steps`` SGD steps on one device: the
     single-card counterpart of the reference's ``run``
     (``burnin.py:687-735``), with its result keys.
@@ -372,23 +487,32 @@ def run(steps: int = 5, cfg: BurninConfig = BurninConfig(),
     tokens from one seeded 1, ``targets = roll(tokens, -1)``. Every step
     fetches its loss to the host, which is the sync; each step after the
     first (which carries the kernel builds and warm-up) runs under
-    :func:`runtime_metrics.device_busy`. The mesh is one device, so
-    ``mesh`` is ``{"data": 1, "model": 1}``. The reference's publication of
-    FLOPs and the metrics textfile (``add_flops``/``write``) waits for the
-    FLOP count of ``timed_steps`` and the port of ``runtime_metrics``'s
-    writer."""
+    :func:`runtime_metrics.device_busy`. After every synced step the
+    step's :func:`flops_per_step` goes to :func:`runtime_metrics.add_flops`;
+    the metrics textfile is written every ``publish_interval_s`` seconds
+    and once at the end (a no-op without the exporter's hostPath). The
+    mesh is one device, so ``mesh`` is ``{"data": 1, "model": 1}``."""
     dev = resolve_device(device)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(1))
-    batch = (tokens, torch.roll(tokens, -1, dims=1))
+    flops = flops_per_step(cfg)
+    params, batch = seeded_inputs(cfg, dev)
     losses = []
+    metrics_path = runtime_metrics.resolved_path()
     t0 = time.perf_counter()
+    last_publish = time.monotonic()
     for i in range(steps):
         ctx = runtime_metrics.device_busy() if i else contextlib.nullcontext()
         with ctx:
             params, loss = train_step(params, batch, cfg)
             losses.append(float(loss))
+        runtime_metrics.add_flops(flops)
+        # periodic mid-run publication: a scraper during a long burn-in
+        # sees live gauges, not only the end-of-Job snapshot
+        now = time.monotonic()
+        if now - last_publish >= publish_interval_s:
+            runtime_metrics.write(metrics_path)
+            last_publish = now
+    # final snapshot: a run shorter than the interval still publishes
+    runtime_metrics.write(metrics_path)
     dt = time.perf_counter() - t0
     decreasing = losses[-1] < losses[0]
     return {

@@ -5,8 +5,9 @@ NVIDIA card. Run from the repository root: ``python3 chip_smoke.py``.
 It drives the port's main paths with the burn-in transformer at GPT-J
 block width (d4096, f16384, h16, vocab 8192), seq 8192, random weights
 from seed 0 — the serving engine answering HTTP requests with 4 slots,
-``burnin.run`` training at batch 1, and ``burnin.timed_steps`` timing
-that training — then the validation Job's entry point, and holds every
+``burnin.run`` training at batch 1, the sharded step at mesh (1, 1), and
+``burnin.timed_steps`` timing that training — then the validation Job's
+entry point and the sharded bench arms (``shardbench``), and holds every
 kernel on those paths against its plain PyTorch version on the card.
 Phases, each fatal when it fails:
 
@@ -25,6 +26,11 @@ Phases, each fatal when it fails:
    plain versions at the stated shapes and tolerances, and their times at
    the training shape beside their bounds, the plain versions' times and
    one PyTorch library call's time;
+   The LM head: its tensor-core route (``burnin.lm_head``, a bf16
+   cuBLAS product with f32 output, and split-cotangent gradients) against
+   the f32 product of the up-cast operands at the training shape, within
+   the stated bounds; its kernels by name (a bf16 tensor-core GEMM, no
+   f32 GEMM);
 5. serving: ``ServingServer`` answers concurrent ``POST /v1/generate``
    requests; the kernel launch counts of that run must cover the engine's
    iterations; the metrics scrape must agree with the engine; one
@@ -34,7 +40,10 @@ Phases, each fatal when it fails:
    the losses must be finite and decrease, and K1, K2 and K3 must each
    launch once a step; one step's per-parameter gradients on the flash
    path are compared with the plain ("xla") attention path's; ms per
-   step, tokens/s and peak device memory;
+   step, tokens/s and peak device memory; ``run`` reports mesh (1, 1),
+   one device, one process. Then the sharded step: ``make_sharded_step``
+   at mesh (1, 1) over a one-rank NCCL group must match ``train_step``'s
+   losses over the same steps and launch K1, K2 and K3 once a step;
 7. timed: ``burnin.flops_per_step`` of the training configuration must
    equal the closed-form model count; ``burnin.timed_steps`` at that
    configuration, inside a duty-cycle and a tensorcore window, must
@@ -47,8 +56,14 @@ Phases, each fatal when it fails:
 9. validate: ``validate.main`` for device-query, suite, matmul, psum
    (NCCL over the card's one rank) and burnin must each exit 0 with
    ``ok``;
-10. profile: device time by kernel for one decode iteration and for one
-   training step.
+10. shardbench: ``shardbench.main`` on the card (every arm on mesh
+   (1, 1) of the one card; ``long_context`` at s8192 through K1, K2 and
+   K3): no arm may fail; each arm's TFLOP/s and MFU beside the card's
+   name and power limit; the collectives roofline of one rank is printed
+   as no link measured;
+11. profile: device time by kernel for one decode iteration and for one
+   training step; neither may run an f32 GEMM (``sm80_xmma_gemm_f32f32``,
+   ``simt_sgemm``).
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a card, or without the
@@ -121,6 +136,24 @@ TRAIN_LOSS_ATOL = 2e-3
 # reps pairs of TIMED_STEPS and 3 * TIMED_STEPS steps after a warm-up pair.
 TIMED_STEPS = 5
 TIMED_REPS = 3
+# The LM head at the training shape, tensor cores against the f32 product
+# of the up-cast operands. Logits: both are f32 sums of the same D = 4096
+# exact products in other orders. They are held to sqrt(D) * u * sum|y w|
+# (u = 2^-24), the probabilistic bound on the rounding error of a sum of
+# D terms (Higham and Mary 2019: errors of either sign grow as sqrt(D), the
+# worst case as D). The two f32 orders came to 0.248 of it on an H100 at
+# this shape; logits rounded to bf16 land 103 times outside it, and the
+# run shows that control failing. Gradients: both
+# round to bf16 once, after f32 sums that differ by far less than a bf16
+# ulp, so every element lies within one ulp at the largest magnitude, and
+# at most HEAD_GRAD_MISMATCH of the elements round otherwise than the f32
+# route's. The split cotangent (hi + lo, ~16 bits) gave 0.52% on an H100
+# at this shape; its high half alone (8 bits) gave 42.6%, and the run
+# shows that control failing too.
+HEAD_GRAD_MISMATCH = 0.02
+# f32 GEMM kernels the head ran on before it moved to the tensor cores;
+# none may remain in a decode or a training step.
+F32_GEMMS = ("sm80_xmma_gemm_f32f32", "simt_sgemm")
 # The serving drive: burnin.standard_config's width at this context.
 SERVING_SEQ = 8192
 SERVING_SLOTS = 4
@@ -166,13 +199,14 @@ def device_phase(torch):
         capture_output=True, text=True, timeout=60, check=True)
     print(f"device: {name}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
-    print(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line)
     acc = topology.from_device_name(name)
     check(acc is not None, f"no catalogue entry for {name!r}: no peak to "
                            f"bound the kernels by")
     print(f"catalogue: {acc.name}, data sheet {acc.peak_bf16_tflops:g} "
           f"TFLOP/s dense bf16, {acc.hbm_bytes_per_s / 1e12:g} TB/s HBM")
-    return name, acc
+    return name, acc, smi_line
 
 
 def sass_counts(lib: str, ops) -> dict:
@@ -467,6 +501,95 @@ def backward_phase(torch, acc) -> dict:
     return out
 
 
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers (8 significant bits) at |x| > 0."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def head_phase(torch) -> None:
+    """The LM head (``burnin.lm_head``) at the training shape, forward and
+    both gradients, against the f32 product of the up-cast operands (the
+    CPU route) on the same inputs; its time beside that route's; its
+    kernels by name."""
+    from tpu_cluster_torch.workloads import burnin
+
+    std = burnin.standard_config()
+    n, d, v = TRAIN_BATCH * TRAIN_SEQ, std.d_model, std.vocab
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    y = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(d, v, generator=gen, device="cuda") * d ** -0.5
+         ).bfloat16()
+    # a cotangent of the cross-entropy's scale, (softmax - onehot) / N
+    g = torch.randn(n, v, generator=gen, device="cuda") / n
+    yl, wl = y.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def head():
+        return torch.autograd.grad(burnin.lm_head(yl, wl), (yl, wl), g)
+
+    def plain():
+        return torch.autograd.grad(yl.float() @ wl.float(), (yl, wl), g)
+
+    logits = burnin.lm_head(y, w)
+    dy, dw = head()
+    torch.cuda.synchronize()
+    check(logits.dtype == torch.float32 and dy.dtype == dw.dtype
+          == torch.bfloat16, "LM head dtypes")
+    want = y.float() @ w.float()
+    bound = math.sqrt(d) * 2.0 ** -24 * (y.float().abs() @ w.float().abs())
+    err = (logits - want).abs()
+    ratio = (err / bound).max().item()
+    control = ((want.bfloat16().float() - want).abs() / bound).max().item()
+    print(f"lm_head [{n}, {d}] x [{d}, {v}]: logits max_abs_err "
+          f"{err.max().item():.3e}, largest err / (sqrt(D) u sum|y w|) "
+          f"{ratio:.3e} (tol 1); control, the f32 product rounded to bf16: "
+          f"{control:.3e} (must exceed 1)")
+    check(ratio <= 1.0, "LM head logits outside the f32 summation bound")
+    check(control > 1.0, "the logits bound does not reject bf16 logits")
+    del logits, want, err, bound
+    want_dy, want_dw = plain()
+    # the control: the gradients from the high half of the cotangent alone
+    hi = g.to(torch.bfloat16)
+    f32 = torch.float32
+    hi_dy = torch.mm(hi, w.t(), out_dtype=f32).to(torch.bfloat16)
+    hi_dw = torch.mm(y.t(), hi, out_dtype=f32).to(torch.bfloat16)
+    for name, got, ref, hi_only in (("dX", dy, want_dy, hi_dy),
+                                    ("dW", dw, want_dw, hi_dw)):
+        gerr = (got.float() - ref.float()).abs().max().item()
+        ulp = bf16_ulp(ref.float().abs().max().item())
+        frac = (got != ref).float().mean().item()
+        hi_frac = (hi_only != ref).float().mean().item()
+        print(f"lm_head {name}: max_abs_err {gerr:.3e} (tol one bf16 ulp "
+              f"at the largest magnitude, {ulp:.3e}); elements rounded "
+              f"otherwise than the f32 route {frac:.4%} (tol "
+              f"{HEAD_GRAD_MISMATCH:.0%}); control, the high half of the "
+              f"cotangent alone: {hi_frac:.4%} (must exceed the tol)")
+        check(gerr <= ulp, f"LM head {name} disagrees with the f32 route")
+        check(frac <= HEAD_GRAD_MISMATCH,
+              f"LM head {name} rounds otherwise than the f32 route")
+        check(hi_frac > HEAD_GRAD_MISMATCH,
+              f"the {name} check does not reject an 8-bit cotangent")
+    del dy, dw, want_dy, want_dw, hi, hi_dy, hi_dw
+    fwd_ms = cuda_ms(torch, lambda: burnin.lm_head(y, w), warmup=3,
+                     reps=10)
+    fwd_plain_ms = cuda_ms(torch, lambda: y.float() @ w.float(), warmup=1,
+                           reps=3)
+    step_ms = cuda_ms(torch, head, warmup=3, reps=10)
+    step_plain_ms = cuda_ms(torch, plain, warmup=1, reps=3)
+    flops = 2.0 * n * d * v
+    print(f"lm_head: forward {fwd_ms:.3f} ms ({flops / fwd_ms / 1e9:.1f} "
+          f"TFLOP/s) against the f32 route's {fwd_plain_ms:.3f} ms; forward "
+          f"and both gradients {step_ms:.3f} ms against {step_plain_ms:.3f}"
+          f" ms")
+    names = profile(torch, "the LM head, forward and both gradients", head,
+                    top=8)
+    gemms = [k for k in names if "gemm" in k.lower() or "nvjet" in k]
+    print(f"lm_head GEMM kernels: {gemms}")
+    check(bool(gemms) and not any(f in k for k in names for f in F32_GEMMS),
+          f"LM head not on bf16 tensor-core GEMMs: {names}")
+    del y, w, g, yl, wl
+    torch.cuda.empty_cache()
+
+
 def _post(url: str, prompt, replies, i: int) -> None:
     body = json.dumps({"prompt": prompt}).encode()
     req = urllib.request.Request(url + "/v1/generate", data=body,
@@ -600,7 +723,7 @@ def training_phase(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels:  # count the main path's run only
         fn.launches = 0
-    result = burnin.run(steps=TRAIN_STEPS, cfg=cfg)
+    result = burnin.run(steps=TRAIN_STEPS, cfg=cfg, mesh_shape=(1, 1))
     torch.cuda.synchronize()
     launches = [fn.launches for fn in kernels]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -616,6 +739,10 @@ def training_phase(torch) -> dict:
           f"training losses {result['losses']}")
     check(result["loss_decreasing"] and result["ok"],
           f"training loss did not decrease: {result['losses']}")
+    check((result["mesh"], result["devices"], result["processes"])
+          == ({"data": 1, "model": 1}, 1, 1),
+          f"run reports mesh {result['mesh']}, devices {result['devices']}, "
+          f"processes {result['processes']}")
     check(launches == [TRAIN_STEPS] * 3,
           f"launches K1/K2/K3 {launches}, expected {TRAIN_STEPS} each (one "
           f"attention layer, remat none)")
@@ -651,6 +778,49 @@ def training_phase(torch) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "params": params, "batch": batch,
             "cfg": cfg, "step_ms": step_ms}
+
+
+def sharded_phase(torch, trained: dict) -> dict:
+    """``make_sharded_step`` at mesh (1, 1) over a one-rank NCCL group at
+    the training configuration, against ``train_step`` over the same
+    steps from the same seeded inputs; launch counts of the sharded run.
+    Returns them."""
+    from tpu_cluster_torch.kernels import flash_attention as fa
+    from tpu_cluster_torch.workloads import burnin, collectives
+
+    cfg = trained["cfg"]
+    p, want = trained["params"], []
+    for _ in range(TRAIN_STEPS):
+        p, loss = burnin.train_step(p, trained["batch"], cfg)
+        want.append(loss.item())
+    del p
+    kernels = (fa.flash_attention, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    with collectives.process_group("cuda") as (_, world, dev):
+        mesh = burnin.make_mesh((1, 1), dev)
+        step, params, batch = burnin.make_sharded_step(mesh, cfg)
+        torch.cuda.synchronize()
+        for fn in kernels:  # count the main path's run only
+            fn.launches = 0
+        got = []
+        for _ in range(TRAIN_STEPS):
+            params, loss = step(params, batch)
+            got.append(loss.item())
+        launches = [fn.launches for fn in kernels]
+    del params, batch
+    torch.cuda.empty_cache()
+    err = max(abs(a - b) for a, b in zip(got, want))
+    print(f"sharded: make_sharded_step mesh (1, 1), {world} NCCL rank: "
+          f"losses {[round(x, 6) for x in got]} against train_step's "
+          f"{[round(x, 6) for x in want]} (max |diff| {err:.2e}, tol "
+          f"{TRAIN_LOSS_ATOL}); launches K1 {launches[0]}, K2 "
+          f"{launches[1]}, K3 {launches[2]}")
+    check(err <= TRAIN_LOSS_ATOL, "sharded step's losses disagree with "
+                                  "train_step's")
+    check(launches == [TRAIN_STEPS] * 3,
+          f"sharded launches K1/K2/K3 {launches}, expected {TRAIN_STEPS} "
+          f"each")
+    return {"launches": launches}
 
 
 def timed_phase(torch, acc, trained: dict) -> dict:
@@ -780,9 +950,58 @@ def validate_phase(torch) -> None:
                   f"validate --mode={mode} failed: {doc}")
 
 
-def profile(torch, label: str, fn, top: int = 10) -> None:
+def shardbench_phase(torch, acc, smi_line: str) -> dict:
+    """``shardbench.main`` on the card: the three arms on the one card's
+    mesh (1, 1), the collectives roofline of one rank; launch counts of
+    that run. Returns them."""
+    from tpu_cluster_torch.kernels import flash_attention as fa
+    from tpu_cluster_torch.workloads import shardbench
+
+    kernels = (fa.flash_attention, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    for fn in kernels:  # count the main path's run only
+        fn.launches = 0
+    t0 = time.perf_counter()
+    doc = shardbench.main([])
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+    check(doc["platform"] == "cuda" and not doc["tiny"],
+          f"shardbench ran platform {doc['platform']} tiny {doc['tiny']}")
+    for name, arm in doc["arms"].items():
+        check("error" not in arm, f"shardbench arm {name}: {arm}")
+        mfu = arm["tflops"] / acc.peak_bf16_tflops
+        print(f"shardbench {name}: mesh {arm['mesh']}, attention "
+              f"{arm['attention']}, {arm['tflops']:.2f} TFLOP/s, MFU "
+              f"{mfu:.4f}, spread {arm.get('tflops_spread', arm.get('note'))}"
+              f", {arm['tokens_per_s']:.1f} tokens/s, flops_scope "
+              f"{arm['flops_scope']}, points {arm['points']} ({smi_line})")
+        check(0 < mfu <= 1.0, f"shardbench arm {name} MFU {mfu} outside "
+                              f"(0, 1]")
+    long = next(a for a in shardbench.plan(doc["devices"], False)
+                if a.name == "long_context")
+    check(doc["arms"]["long_context"]["attention"] == "flash",
+          "long_context arm not on the flash kernels")
+    ran = 4 * long.steps * (long.reps + 1)
+    print(f"shardbench: {wall:.1f} s; launches K1 {launches[0]}, K2 "
+          f"{launches[1]}, K3 {launches[2]} ({ran} long_context steps run)")
+    check(launches == [ran] * 3,
+          f"shardbench launches K1/K2/K3 {launches}, expected {ran} each")
+    roof = doc["collectives"]
+    check("error" not in roof, f"shardbench collectives: {roof}")
+    if roof["devices"] == 1:
+        print("shardbench collectives: one rank: no link measured")
+    else:
+        print(f"shardbench collectives: all_reduce "
+              f"{roof['all_reduce']['busbw_gib_s']} GiB/s, all_gather "
+              f"{roof['all_gather']['busbw_gib_s']} GiB/s busbw over "
+              f"{roof['devices']} ranks")
+    return {"launches": launches}
+
+
+def profile(torch, label: str, fn, top: int = 10) -> list:
     """Device time by kernel over one call of ``fn`` (after a warm call):
-    the ``top`` largest, then the rest summed."""
+    the ``top`` largest, then the rest summed. Returns every kernel's
+    name."""
     from torch.profiler import ProfilerActivity, profile as trace
 
     fn()  # warm
@@ -813,11 +1032,13 @@ def profile(torch, label: str, fn, top: int = 10) -> None:
     print(f"  {rest:8.2f} ms  {100 * rest / max(total, 1e-9):5.1f}%  "
           f"x{sum(e.count for e in rows[top:])}  the other "
           f"{len(rows) - len(rows[:top])} kernels")
+    return [e.key for e in rows]
 
 
 def profile_phase(torch, served: dict, trained: dict) -> None:
     """Device time by kernel over one decode iteration at the serving
-    shape (four full slots) and over one training step."""
+    shape (four full slots) and over one training step; neither may run
+    an f32 GEMM."""
     import numpy as np
 
     from tpu_cluster_torch.workloads import burnin
@@ -826,10 +1047,14 @@ def profile_phase(torch, served: dict, trained: dict) -> None:
     rng = np.random.default_rng(SEED + 1)
     tokens = rng.integers(0, cfg.vocab, (cfg.slots, cfg.seq)).astype(np.int32)
     pos = np.full((cfg.slots,), cfg.seq - 1, np.int32)
-    profile(torch, "one decode iteration",
-            lambda: served["decode"](served["params"], tokens, pos))
-    profile(torch, "one training step", lambda: burnin.train_step(
-        trained["params"], trained["batch"], trained["cfg"]), top=16)
+    runs = (("one decode iteration", 10,
+             lambda: served["decode"](served["params"], tokens, pos)),
+            ("one training step", 16, lambda: burnin.train_step(
+                trained["params"], trained["batch"], trained["cfg"])))
+    for label, top, fn in runs:
+        names = profile(torch, label, fn, top=top)
+        f32 = [k for k in names if any(f in k for f in F32_GEMMS)]
+        check(not f32, f"{label} still runs f32 GEMMs: {f32}")
 
 
 def main() -> int:
@@ -842,21 +1067,26 @@ def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     # the port must sit beside this script; nothing is printed without it
     import tpu_cluster_torch.workloads.serving  # noqa: F401
-    name, acc = device_phase(torch)
+    name, acc, smi_line = device_phase(torch)
     build_phase()
     k1 = flash_phase(torch, acc)
     backward = backward_phase(torch, acc)
+    head_phase(torch)
     served = serving_phase(torch)
     trained = training_phase(torch)
+    sharded = sharded_phase(torch, trained)
     timed = timed_phase(torch, acc, trained)
     validate_phase(torch)
+    bench = shardbench_phase(torch, acc, smi_line)
     k2, k3 = backward["flash_attn_bwd_dkv"], backward["flash_attn_bwd_dq"]
     k1["launches_by_path"] = {"serving": served["launches"]}
     k1["training_shape"] = backward["k1_training"]
     for i, record in enumerate((k1, k2, k3)):
         by_path = record.setdefault("launches_by_path", {})
         by_path["training"] = trained["launches"][i]
+        by_path["sharded"] = sharded["launches"][i]
         by_path["timed_steps"] = timed["launches"][i]
+        by_path["shardbench"] = bench["launches"][i]
         record["launches"] = sum(by_path.values())
     profile_phase(torch, served, trained)
     print(json.dumps({"kernels": [k1, k2, k3]}))

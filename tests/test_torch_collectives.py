@@ -3,7 +3,8 @@ reference: the collective matrix over four gloo ranks (one process
 each, the counterpart of the reference's virtual 8-device mesh), the
 one-rank group when none is up, the bandwidth results' keys, and two
 real processes bootstrapped by ``multihost.initialize`` under the
-Indexed-Job env running ``validate --mode=psum``."""
+Indexed-Job env running ``validate --mode=psum``, with one rank each and
+with two ranks each (one rank a card across hosts)."""
 
 import contextlib
 import io
@@ -159,3 +160,23 @@ def test_two_process_device_query_counts_every_worker():
         assert doc["process_index"] == idx
         assert (doc["local_device_count"], doc["expected_global_devices"],
                 doc["global_device_count"]) == (1, 2, 2)
+
+
+def test_two_hosts_of_two_ranks_psum_over_four():
+    """Two pods of an Indexed Job with two devices each start a rank per
+    device; rank = host index x 2 + local index, and the global psum and
+    the collective matrix span all four."""
+    results = run_two_workers(
+        [sys.executable, "-m", "tpu_cluster_torch.workloads.validate",
+         "--mode=psum", "--device=cpu", "--psum-devices=2"])
+    for idx, (rc, out, err, _) in enumerate(results):
+        assert rc == 0, f"worker {idx} failed:\n{err[-2000:]}"
+        doc = json.loads(out[out.index("{"):])
+        assert doc["ok"] and doc["devices"] == 4, doc
+        gp = doc["global_psum"]
+        assert gp["ok"] and gp["processes"] == gp["devices"] == 4
+        assert gp["total"] == 6.0  # sum(0..3) over every rank
+        # the pod prints its first rank's document
+        assert gp["process_index"] == doc["bootstrap"]["rank"] == 2 * idx
+        assert doc["bootstrap"]["world_size"] == 4
+        assert doc["bootstrap"]["local_rank"] == 0

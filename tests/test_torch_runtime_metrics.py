@@ -177,6 +177,7 @@ def fake_h100(monkeypatch):
     its 85,017,493,504 (what mem_get_info reads on that card)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: H100)
     monkeypatch.setattr(torch.cuda, "memory_stats",
                         lambda d=None: {"allocated_bytes.all.current": 4096})
@@ -232,6 +233,37 @@ def test_tensorcore_gauge_against_the_catalogue_peak(fake_h100):
         pytest.approx(10.0)
     assert g['tpu_duty_cycle_percent{chip="0"}'] == pytest.approx(20.0)
     assert g["tpu_process_devices"] == 1
+
+
+def test_a_process_publishes_the_card_it_owns(fake_h100, monkeypatch):
+    """Four H100s on the host, this process on card 2 (one rank a card):
+    every gauge carries chip 2 alone, the tensorcore percentage is not
+    divided by the card count, and only card 2's memory is read."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    asked = []
+
+    def mem_get_info(d=None):
+        asked.append(d)
+        return (1 << 30, 85017493504)
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    with port.duty_cycle_window() as duty, \
+            port.tensorcore_window() as tc:
+        duty._acc._t0 = tc._acc._t0 = T - 30
+        duty.add_busy(6.0, now=T - 1)
+        tc.add_flops(2.967e15, now=T - 1)
+        lines = port.collect_lines(now=1)
+    g = _gauges(lines)
+    chips = {key.split('chip="', 1)[1].split('"', 1)[0]
+             for key in g if 'chip="' in key}
+    assert chips == {"2"}
+    assert g['tpu_tensorcore_utilization_percent{chip="2"}'] == \
+        pytest.approx(10.0)
+    assert g['tpu_duty_cycle_percent{chip="2"}'] == pytest.approx(20.0)
+    assert g['tpu_hbm_limit_bytes{chip="2"}'] == 85017493504
+    assert g["tpu_process_devices"] == 1
+    assert asked == [torch.device("cuda", 2)]
 
 
 def test_tensorcore_gauge_absent_off_catalogue(fake_h100, monkeypatch):

@@ -120,6 +120,6 @@ def test_coordinator_address_needs_hosts():
 
 
 def test_initialize_is_a_noop_on_one_host():
-    assert multihost.initialize({}, device="cpu") == \
+    assert multihost.initialize({}, device="cpu", local_ranks=1) == \
         {"multihost": False, "num_processes": 1, "process_id": 0}
     assert not dist.is_initialized()

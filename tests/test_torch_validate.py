@@ -2,8 +2,8 @@
 against the reference's on the CPU: every mode, with ``--device cpu``,
 exits as the reference's does and prints the same JSON keys (values
 that name the device aside); without a card and without ``--device
-cpu`` it exits non-zero; ``burnin`` refuses a process group larger than
-one rank."""
+cpu`` it exits non-zero; ``burnin`` trains the sharded step over a process
+group of two ranks."""
 
 import json
 import os
@@ -83,8 +83,11 @@ def test_exits_nonzero_without_a_card(capsys):
     assert proc.returncode != 0 and proc.stdout == ""
 
 
-def test_burnin_refuses_a_process_group_of_two():
-    """The sharded step is not ported: a group of two ranks must not
-    train one card each and call that the sharded check."""
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        collectives.run_ranks(2, validate.run, "burnin", device="cpu")
+def test_burnin_trains_a_process_group_of_two():
+    """A group of two ranks is not refused: ``burnin`` trains the sharded
+    step over it, on ``default_mesh_shape(2)``, and the loss falls."""
+    doc = collectives.run_ranks(2, validate.run, "burnin", device="cpu")
+    assert doc["ok"], doc
+    assert doc["mesh"] == {"data": 1, "model": 2}
+    assert doc["devices"] == doc["processes"] == 2
+    assert doc["loss_decreasing"] and len(doc["losses"]) == 5

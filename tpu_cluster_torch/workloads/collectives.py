@@ -21,10 +21,12 @@ test mesh).
 from __future__ import annotations
 
 import contextlib
+import functools
+import os
 import queue
 import time
 import traceback
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -290,19 +292,28 @@ def collective_matrix(n_devices: int = 0, device: DeviceLike = None
     return results
 
 
-def _rank_main(rank: int, n: int, port: int, device_type: str,
-               fn: Callable[..., Dict[str, Any]], args: tuple,
-               results) -> None:
-    """One rank of :func:`run_ranks`: join the group through the parent's
-    store, run ``fn`` in a duty-cycle window, report ``(rank, status,
-    result or traceback, busy seconds)``."""
+def _join_store(port: int, rank: int, n: int, device: torch.device) -> None:
+    """Join a group of ``n`` ranks through the TCP store that
+    :func:`run_ranks`' caller hosts on ``port``."""
+    store = dist.TCPStore("127.0.0.1", port, is_master=False)
+    dist.init_process_group(_backend(device), store=store, rank=rank,
+                            world_size=n)
+
+
+def _rank_main(rank: int, n: int, join: Callable[..., None],
+               device_type: str, fn: Callable[..., Dict[str, Any]],
+               args: tuple, results) -> None:
+    """One rank of :func:`run_ranks`: on its card, join the group with
+    ``join(rank, n, device)``, run ``fn`` in a duty-cycle window, report
+    ``(rank, status, result or traceback, busy seconds)``."""
     try:
         if device_type == "cuda":
             torch.cuda.set_device(rank)
+        else:
+            # n ranks share this host's cores
+            torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // n))
         dev = torch.device(device_type)
-        store = dist.TCPStore("127.0.0.1", port, is_master=False)
-        dist.init_process_group(_backend(dev), store=store, rank=rank,
-                                world_size=n)
+        join(rank, n, dev)
         try:
             with runtime_metrics.duty_cycle_window() as sampler:
                 out = fn(*args, device=dev)
@@ -314,32 +325,39 @@ def _rank_main(rank: int, n: int, port: int, device_type: str,
 
 
 def run_ranks(n: int, fn: Callable[..., Dict[str, Any]], *args: Any,
-              device: DeviceLike = None) -> Dict[str, Any]:
+              device: DeviceLike = None,
+              join: Optional[Callable[..., None]] = None) -> Dict[str, Any]:
     """``fn(*args, device=...)`` on ``n`` ranks of one host, one device
     each (cards 0..n-1, or n gloo ranks on the CPU), and rank 0's result.
 
-    With ``n <= 1``, or inside a process group that is already up (a
-    multi-host Job), ``fn`` runs here. Otherwise each rank is a process of
-    its own (``spawn``), joined over a TCP store this process hosts on a
-    free local port; the ranks' device-busy seconds are reported to this
-    process's duty-cycle window. A rank that fails raises here with its
-    traceback; ranks that do not finish within ``RANK_TIMEOUT_S`` are
+    With ``n <= 1`` and no ``join``, or inside a process group that is
+    already up, ``fn`` runs here. Otherwise each rank is a process of its
+    own (``spawn``) on card ``rank``, which joins its group with
+    ``join(rank, n, device)``: by default a group of these ``n`` ranks,
+    over a TCP store this process hosts on a free local port; a
+    multi-host Job passes ``multihost.join_rank``, so that each rank
+    joins the Job's group. The ranks' device-busy seconds are reported to
+    this process's duty-cycle window. A rank that fails raises here with
+    its traceback; ranks that do not finish within ``RANK_TIMEOUT_S`` are
     killed.
     """
     dev = resolve_device(device)
-    if n <= 1 or dist.is_initialized():
+    if (n <= 1 and join is None) or dist.is_initialized():
         return fn(*args, device=dev)
     if dev.type == "cuda" and n > torch.cuda.device_count():
         raise ValueError(f"requested {n} devices, have "
                          f"{torch.cuda.device_count()}")
     import torch.multiprocessing as mp
 
-    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
-                          wait_for_workers=False)
+    store = None
+    if join is None:
+        store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                              wait_for_workers=False)
+        join = functools.partial(_join_store, store.port)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, n, store.port, dev.type, fn, args, results))
+                         args=(r, n, join, dev.type, fn, args, results))
              for r in range(n)]
     for p in procs:
         p.start()

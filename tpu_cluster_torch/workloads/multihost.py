@@ -11,9 +11,13 @@ The env contract is the reference's unchanged, because the Job renderer
   TPU_COORDINATOR_PORT coordinator port (default 8476)
 
 Where the reference calls ``jax.distributed.initialize``, the port joins a
-``torch.distributed`` process group with one rank per pod: NCCL when the
-pod runs on its cards, gloo on the CPU, rendezvous over TCP at the first
-host's coordinator port.
+``torch.distributed`` process group with one rank per card of every pod:
+NCCL when the pod runs on its cards, gloo on the CPU, rendezvous over TCP
+at the first host's coordinator port. A pod with several cards starts one
+rank process per card (``collectives.run_ranks`` with :func:`join_rank`);
+rank = host index x cards per host + local index, so the group spans
+every card of every host, as the reference's global mesh spans every
+chip.
 """
 
 from __future__ import annotations
@@ -67,19 +71,48 @@ def plan(env: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
     }
 
 
-def initialize(env: Optional[Dict[str, str]] = None,
-               device: Any = None) -> Dict[str, Any]:
-    """Join the Job's process group per the resolved plan: NCCL for a
-    CUDA ``device`` (``None`` means the card), gloo for the CPU. A no-op
-    for single-host Jobs. Returns the plan."""
+def initialize(env: Optional[Dict[str, str]] = None, device: Any = None,
+               *, local_ranks: int, local_rank: int = 0) -> Dict[str, Any]:
+    """Join the Job's process group per the resolved plan as local rank
+    ``local_rank`` of the ``local_ranks`` this host starts (every one of
+    them must call this): global rank = host index x ``local_ranks`` +
+    ``local_rank`` of hosts x ``local_ranks``, on card ``local_rank``.
+    NCCL for a CUDA ``device`` (``None`` means the card), gloo for the
+    CPU. A no-op for single-host Jobs. Returns the plan, and for a joined
+    group the rank's place in it."""
     p = plan(env)
     if p["multihost"]:
         import torch
         import torch.distributed as dist
 
         dev = torch.device("cuda" if device is None else device)
+        if not 0 <= local_rank < local_ranks:
+            raise ValueError(f"local rank {local_rank} of {local_ranks}")
+        if dev.type == "cuda":
+            torch.cuda.set_device(local_rank)
+        rank = p["process_id"] * local_ranks + local_rank
+        world = p["num_processes"] * local_ranks
         dist.init_process_group(
             "nccl" if dev.type == "cuda" else "gloo",
             init_method=f"tcp://{p['coordinator_address']}",
-            rank=p["process_id"], world_size=p["num_processes"])
+            rank=rank, world_size=world)
+        p = {**p, **position(p)}
     return p
+
+
+def position(p: Dict[str, Any]) -> Dict[str, int]:
+    """This rank's place in the joined group of a multi-host plan ``p``:
+    ``rank``, ``world_size`` and ``local_rank`` (its index among its
+    host's ranks)."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    return {"rank": rank, "world_size": world,
+            "local_rank": rank % (world // p["num_processes"])}
+
+
+def join_rank(local_rank: int, local_ranks: int, device: Any) -> None:
+    """Join as local rank ``local_rank`` of ``local_ranks`` on this host,
+    under this process's Indexed-Job env: the join of one rank process
+    that ``collectives.run_ranks`` starts for each card of a pod."""
+    initialize(device=device, local_rank=local_rank, local_ranks=local_ranks)

@@ -270,13 +270,15 @@ def device_busy() -> Iterator[None]:
 
 
 def local_devices() -> list:
-    """The devices this process owns: every visible card, else the CPU as
-    one device."""
+    """The device this process owns: its current card (one rank a card:
+    ``collectives.run_ranks`` and ``multihost.initialize`` set each
+    rank's), else the CPU as one device. Not every visible card: where the
+    reference's one JAX process owns every local chip, a port process
+    computes on one, and the other cards' processes publish their own."""
     import torch
 
     if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
+        return [torch.device("cuda", torch.cuda.current_device())]
     return [torch.device("cpu")]
 
 

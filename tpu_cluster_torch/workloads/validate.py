@@ -9,15 +9,19 @@ Modes, as the reference's:
   vector-add    an elementwise add on one card     (cuda-vector-add analog)
   matmul        bf16 matmul throughput             (compute smoke)
   psum          collective matrix over the ranks   (NCCL all-reduce test)
-  burnin        single-card train step; loss decreases
+  burnin        sharded train step over the process group; loss
+                decreases
   suite         all of the above (except burnin)
 
-Multi-host Jobs run the same modes: ``multihost.initialize()`` is called
-first and joins the Job's process group when the Indexed-Job env
-(TPU_WORKER_HOSTNAMES ...) names more than one host, else does nothing.
-On one host, ``psum`` (and ``suite``'s psum) runs one rank per device:
-``--psum-devices N`` ranks (0 means every card, or 1 on the CPU), each
-in a process of its own (``collectives.run_ranks``).
+Multi-host Jobs run the same modes over one group of every card of every
+host: when the Indexed-Job env (TPU_WORKER_HOSTNAMES ...) names more than
+one host, each pod starts one rank per local card (``--psum-devices N``
+ranks; 0 means every card, or 1 on the CPU), and each rank joins the
+Job's group through ``multihost.initialize`` and runs the mode; the pod
+prints its first rank's document. On one host, ``psum`` (and
+``suite``'s psum) runs one rank per device likewise, over a group of the
+host's own ranks (``collectives.run_ranks``). ``burnin`` in a group of
+more than one rank trains on a ``burnin.default_mesh_shape`` mesh.
 
 Runs on the card unless ``--device cpu`` is given; without a card it
 exits non-zero. Output: one JSON document on stdout with the reference's
@@ -56,12 +60,35 @@ def _matrix(psum_devices: int, dev) -> dict:
 
 def run(mode: str, matmul_dim: int = 2048, psum_devices: int = 0,
         expect_devices: int = 0, device=None) -> dict:
+    import torch
     import torch.distributed as dist
 
+    from . import burnin, collectives, multihost
+
+    dev = burnin.resolve_device(device)
+    if multihost.plan()["multihost"] and not dist.is_initialized():
+        # one rank per local card, each joining the Job's group
+        local = psum_devices or (torch.cuda.device_count()
+                                 if dev.type == "cuda" else 1)
+        if local > 1:
+            return collectives.run_ranks(
+                local, _checks, mode, matmul_dim, expect_devices,
+                device=dev, join=multihost.join_rank)
+        multihost.initialize(device=dev, local_ranks=1)
+    return _checks(mode, matmul_dim, expect_devices, device=dev,
+                   psum_devices=psum_devices)
+
+
+def _checks(mode: str, matmul_dim: int, expect_devices: int,
+            device=None, psum_devices: int = 0) -> dict:
+    """``mode``'s checks in this process, on the group it has joined (a
+    multi-host Job's) or on none."""
     from . import burnin, collectives, multihost, smoke
 
     dev = burnin.resolve_device(device)
-    bootstrap = multihost.initialize(device=dev)
+    bootstrap = multihost.plan()
+    if bootstrap["multihost"]:
+        bootstrap.update(multihost.position(bootstrap))
     result: dict = {"mode": mode, "bootstrap": bootstrap}
     if mode == "device-query":
         rep = smoke.device_report(dev)
@@ -73,10 +100,12 @@ def run(mode: str, matmul_dim: int = 2048, psum_devices: int = 0,
         result["ok"] = rep["local_device_count"] == expected
         if bootstrap["multihost"]:
             # the assembled Job: every worker's devices must be counted,
-            # or a missing or half-joined host passes unnoticed
+            # or a missing or half-joined host passes unnoticed; each
+            # host's first rank counts the host's cards
             want_global = expected * bootstrap["num_processes"]
-            have = collectives.global_device_count(rep["local_device_count"],
-                                                   dev)
+            have = collectives.global_device_count(
+                rep["local_device_count"] if bootstrap["local_rank"] == 0
+                else 0, dev)
             result["expected_global_devices"] = want_global
             result["global_device_count"] = have
             result["ok"] = result["ok"] and have == want_global
@@ -87,22 +116,16 @@ def run(mode: str, matmul_dim: int = 2048, psum_devices: int = 0,
                                    device=dev))
     elif mode == "psum":
         if bootstrap["multihost"]:
-            # the cross-host all-reduce over every process, plus the full
+            # the cross-host all-reduce over every rank, plus the full
             # collective matrix over the Job's group
             gp = collectives.global_psum_check(device=dev)
-            result.update(collectives.collective_matrix(psum_devices,
-                                                        device=dev))
+            result.update(collectives.collective_matrix(device=dev))
             result["global_psum"] = gp
             result["ok"] = bool(result["ok"]) and gp["ok"]
         else:
             result.update(_matrix(psum_devices, dev))
     elif mode == "burnin":
-        if dist.is_initialized() and dist.get_world_size() > 1:
-            raise RuntimeError(
-                "validate --mode=burnin runs the single-card train step; "
-                "the sharded step over a process group of "
-                f"{dist.get_world_size()} is not ported yet (ROADMAP.md, "
-                "queue A, item 5)")
+        # the sharded step over the group (mesh (1, 1) without one)
         result.update(burnin.run(device=dev))
     elif mode == "suite":
         result.update(smoke.run_suite(matmul_dim=matmul_dim, device=dev))

@@ -7,8 +7,10 @@ block width (d4096, f16384, h16, vocab 8192), seq 8192, random weights
 from seed 0 — the serving engine answering HTTP requests with 4 slots,
 ``burnin.run`` training at batch 1, the sharded step at mesh (1, 1), and
 ``burnin.timed_steps`` timing that training — then the validation Job's
-entry point and the sharded bench arms (``shardbench``), and holds every
-kernel on those paths against its plain PyTorch version on the card.
+entry point, the sharded bench arms (``shardbench``), the flash crossover
+sweep at both head widths, and the host side (discovery, labels, the
+rendered validation Jobs), and holds every kernel on those paths against
+its plain PyTorch version on the card.
 Phases, each fatal when it fails:
 
 1. device: name, and name and power limit as nvidia-smi reports them;
@@ -20,12 +22,13 @@ Phases, each fatal when it fails:
    code of every instance of K1, K2 and K3 must hold wgmma (``HGMMA``)
    and TMA load (``UTMALDG``) instructions;
 3. kernels: K1 (forward) against its plain version at the stated shapes
-   and tolerances, and its time at the serving shape beside its bound,
-   the plain version's time and one PyTorch library call's time;
+   and tolerances, and its time at the serving shape of each head width
+   (256 and 128) beside its bound, the plain version's time and one
+   PyTorch library call's time;
 4. backward kernels: K1's lse, K2 (dK, dV) and K3 (dQ) against their
    plain versions at the stated shapes and tolerances, and their times at
-   the training shape beside their bounds, the plain versions' times and
-   one PyTorch library call's time;
+   the training shape of each head width beside their bounds, the plain
+   versions' times and one PyTorch library call's time;
    The LM head: its tensor-core route (``burnin.lm_head``, a bf16
    cuBLAS product with f32 output, and split-cotangent gradients) against
    the f32 product of the up-cast operands at the training shape, within
@@ -57,13 +60,31 @@ Phases, each fatal when it fails:
    (NCCL over the card's one rank) and burnin must each exit 0 with
    ``ok``;
 10. shardbench: ``shardbench.main`` on the card (every arm on mesh
-   (1, 1) of the one card; ``long_context`` at s8192 through K1, K2 and
-   K3): no arm may fail; each arm's TFLOP/s and MFU beside the card's
-   name and power limit; the collectives roofline of one rank is printed
-   as no link measured;
+   (1, 1) of the one card, each on the attention the crossover selector
+   picks; every arm on the kernels launches K1, K2 and K3 once a step):
+   no arm may fail; each arm's TFLOP/s and MFU beside the card's name
+   and power limit; the collectives roofline of one rank is printed as
+   no link measured;
 11. profile: device time by kernel for one decode iteration and for one
    training step; neither may run an f32 GEMM (``sm80_xmma_gemm_f32f32``,
-   ``simt_sgemm``).
+   ``simt_sgemm``);
+12. crossover (``tpu_cluster_torch/kernels/crossover.py``): at both head
+   widths, flash against ``xla`` logits and training gradients at one
+   seq; then the sweep of seq 256 to 8192 on the serving and training
+   paths, ``xla`` and flash in turns, one row a point beside the card's
+   name and power limit; the seq the rule picks on this run beside
+   ``FLASH_CROSSOVER_SEQ``; beside the grid, the training shape of
+   ``shardbench``'s dp and mp arms (s512 b8 at d_head 256). Fails if
+   flash loses to ``xla`` by more than the spread at the constant or
+   above, or if a point launched K1, K2 or K3 otherwise than once a
+   flash call;
+13. host: the machine's ``/dev/nvidia*`` nodes (at least as many as the
+   cards torch sees), the node labels of the card's host layout
+   (computed, and from the labeler's CLI, whose ``GpuReady`` condition is
+   printed beside the card count), and the validation Jobs
+   rendered for that layout, whose device-query and vector-add
+   containers' command and args run here on the card and must exit 0
+   with ``ok``.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a card, or without the
@@ -72,6 +93,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -85,24 +107,30 @@ import urllib.error
 import urllib.request
 from unittest import mock
 
+# the flash path against the "xla" path: tolerances and error measure of
+# the crossover drive, whose module states their reasons
+from tpu_cluster_torch.kernels.crossover import (GRAD_MAX_REL, GRAD_MEAN_REL,
+                                                 LOGIT_ATOL, LOSS_ATOL,
+                                                 rel_errors)
+
 SEED = 0
-# (B, H, S, D) of the kernel checks; the last is the serving shape. The
-# two with S = 64 mod 128 leave K1's last 128-row query tile half past S.
+# (B, H, S, D) of the kernel checks; those at S = 8192 are the serving
+# shapes of both head widths (standard_config, bench_config), where the
+# kernel is also timed. The two with S = 64 mod 128 leave K1's last
+# 128-row query tile half past S.
 CHECK_SHAPES = ((1, 16, 2048, 256), (2, 8, 1024, 128), (2, 4, 576, 128),
-                (2, 3, 1088, 256), (4, 16, 8192, 256))
+                (2, 3, 1088, 256), (4, 16, 8192, 256), (4, 16, 8192, 128))
+FULL_SEQ = 8192
 # Kernel against its plain version, bf16 outputs: the running max rounds
 # P to bf16 differently from the plain version's single max, so a value
 # may land one bf16 ulp away (1.6e-2 at magnitudes in [2, 4)); the mean
 # error must stay far below that.
 KERNEL_MAX_ABS = 1.6e-2
 KERNEL_MEAN_ABS = 2e-4
-# f32 logits of the kernel path against the plain attention path: bf16
-# rounding differences in the attention output propagate through the
-# block (the same bound as the CPU parity tests).
-LOGIT_ATOL = 5e-2
-# (B, H, S, D) of the backward checks; the last is the training shape.
+# (B, H, S, D) of the backward checks; those at S = 8192 are the training
+# shapes of both head widths, where the kernels are also timed.
 BWD_SHAPES = ((1, 16, 2048, 256), (2, 8, 1024, 128), (2, 4, 576, 128),
-              (2, 3, 1088, 256), (1, 16, 8192, 256))
+              (2, 3, 1088, 256), (1, 16, 8192, 256), (1, 16, 8192, 128))
 # K1's lse (f32) against the plain version's: the running max and exp2
 # against one max and exp, f32 rounding of values below 20.
 LSE_ATOL = 1e-4
@@ -124,14 +152,6 @@ PLAIN_GROUP_BYTES = 2 ** 31
 TRAIN_SEQ = 8192
 TRAIN_BATCH = 1
 TRAIN_STEPS = 5
-# One step's per-parameter gradients, flash path against the "xla" path,
-# relative to the "xla" magnitude: the two paths round attention to bf16
-# at different places (P unnormalised against normalised), which moves
-# gradients by ~2^-8 relative an element: both ratios ~8e-3 on the CPU at
-# small widths, 4e-3 to 8.3e-3 on an H100 at this shape.
-TRAIN_GRAD_MAX_REL = 5e-2
-TRAIN_GRAD_MEAN_REL = 2e-2
-TRAIN_LOSS_ATOL = 2e-3
 # The timed drive: burnin.timed_steps at the training configuration,
 # reps pairs of TIMED_STEPS and 3 * TIMED_STEPS steps after a warm-up pair.
 TIMED_STEPS = 5
@@ -276,13 +296,14 @@ def build_phase() -> None:
 
 def flash_phase(torch, acc) -> dict:
     """The flash-attention kernel against its plain version at every
-    check shape; timings at the serving shape."""
+    check shape; timings at the serving shapes. Returns the record of
+    each, by head width."""
     import torch.nn.functional as F
 
     from tpu_cluster_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    record = {}
+    records = {}
     for b, h, s, d in CHECK_SHAPES:
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
@@ -304,7 +325,7 @@ def flash_phase(torch, acc) -> dict:
               f"kernel disagrees with its plain version at "
               f"B{b} H{h} S{s} D{d}")
         del out, ref, err
-        if (b, h, s, d) != CHECK_SHAPES[-1]:
+        if s != FULL_SEQ:
             continue
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, scale),
                      warmup=3, reps=20)
@@ -321,13 +342,13 @@ def flash_phase(torch, acc) -> dict:
         nbytes = 4.0 * b * s * h * d * 2  # q, k, v read once, o written
         flop_ms = flops / (acc.peak_bf16_tflops * 1e12) * 1e3
         byte_ms = nbytes / acc.hbm_bytes_per_s * 1e3
-        record = {
+        records[d] = record = {
             "name": "flash_attn_fwd", "route": "cuda",
             "source": "tpu_cluster_torch/csrc/flash_attn_fwd.cu",
             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py"
                         ":758 (_flash_attention_impl, reached from "
                         "tpu_cluster/workloads/burnin.py:220)",
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": library_ms, "tflops": flops / ms / 1e9,
@@ -338,7 +359,7 @@ def flash_phase(torch, acc) -> dict:
               f"SDPA {library_ms:.3f} ms")
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return record
+    return records
 
 
 def by_heads(torch, fn, tensors, scale: float):
@@ -359,19 +380,10 @@ def by_heads(torch, fn, tensors, scale: float):
                  for ps in zip(*parts))
 
 
-def rel_errors(got, want):
-    """(max-abs, max-abs / max|want|, mean-abs / mean|want|), in f32."""
-    err = (got.float() - want.float()).abs()
-    mag = want.float().abs()
-    max_abs = err.max().item()
-    return (max_abs, max_abs / mag.max().item(),
-            err.mean().item() / mag.mean().item())
-
-
 def backward_phase(torch, acc) -> dict:
     """K1's lse, K2 and K3 against their plain versions at every backward
-    check shape; timings at the training shape. Returns the K2 and K3
-    records and K1's numbers at the training shape."""
+    check shape; timings at the training shapes. Returns, by head width,
+    the K2 and K3 records and K1's numbers at the training shape."""
     import torch.nn.functional as F
 
     from tpu_cluster_torch.kernels import flash_attention as fa
@@ -418,7 +430,7 @@ def backward_phase(torch, acc) -> dict:
             check(max_rel <= BWD_MAX_REL and mean_rel <= BWD_MEAN_REL,
                   f"{name} disagrees with its plain version at {tag}")
         del ref_dq, ref_dk, ref_dv, dq, dk, dv
-        if (b, h, s, d) != BWD_SHAPES[-1]:
+        if s != FULL_SEQ:
             del q, k, v, do, o, lse, di
             torch.cuda.empty_cache()
             continue
@@ -446,7 +458,8 @@ def backward_phase(torch, acc) -> dict:
             fwd_lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, scale=scale), warmup=3, reps=10)
         fwd_bound, fwd_by = bound(2 * product, 4 * tensor_bytes + row_bytes)
-        out["k1_training"] = {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
+        out[d] = {}
+        out[d]["k1_training"] = {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                               "bound_ms": fwd_bound, "bound_by": fwd_by,
                               "library_ms": fwd_lib_ms,
                               "tflops": 2 * product / fwd_ms / 1e9}
@@ -481,14 +494,14 @@ def backward_phase(torch, acc) -> dict:
             flops = n_products * product
             bound_ms, bound_by = bound(
                 flops, n_tensors * tensor_bytes + 2 * row_bytes)
-            out[name] = {
+            out[d][name] = {
                 "name": name, "route": "cuda",
                 "source": f"tpu_cluster_torch/csrc/{name}.cu",
                 "replaces": "jax/experimental/pallas/ops/tpu/"
                             f"flash_attention.py{line} ({upstream}, "
                             "reached from the VJP of "
                             "tpu_cluster/workloads/burnin.py:220)",
-                "launches": 0, "max_abs_err": err, "ms": ms,
+                "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
             }
@@ -763,16 +776,16 @@ def training_phase(torch) -> dict:
     loss_err = abs(loss_f.item() - loss_x.item())
     print(f"training: one step's loss flash {loss_f.item():.6f} vs xla "
           f"{loss_x.item():.6f} (|diff| {loss_err:.2e}, tol "
-          f"{TRAIN_LOSS_ATOL}); xla-path peak {xla_peak_gib:.1f} GiB")
-    check(loss_err <= TRAIN_LOSS_ATOL, "flash-path loss disagrees with xla")
+          f"{LOSS_ATOL}); xla-path peak {xla_peak_gib:.1f} GiB")
+    check(loss_err <= LOSS_ATOL, "flash-path loss disagrees with xla")
     for name in grads_x:
         _, max_rel, mean_rel = rel_errors(grads_f[name], grads_x[name])
         print(f"  grad {name:5s} flash vs xla: max_abs/max|xla| "
-              f"{max_rel:.3e} (tol {TRAIN_GRAD_MAX_REL}), "
+              f"{max_rel:.3e} (tol {GRAD_MAX_REL}), "
               f"mean_abs/mean|xla| {mean_rel:.3e} (tol "
-              f"{TRAIN_GRAD_MEAN_REL})")
-        check(max_rel <= TRAIN_GRAD_MAX_REL
-              and mean_rel <= TRAIN_GRAD_MEAN_REL,
+              f"{GRAD_MEAN_REL})")
+        check(max_rel <= GRAD_MAX_REL
+              and mean_rel <= GRAD_MEAN_REL,
               f"flash-path gradient of {name} disagrees with the xla path")
     del grads_f, grads_x
     torch.cuda.empty_cache()
@@ -813,9 +826,9 @@ def sharded_phase(torch, trained: dict) -> dict:
     print(f"sharded: make_sharded_step mesh (1, 1), {world} NCCL rank: "
           f"losses {[round(x, 6) for x in got]} against train_step's "
           f"{[round(x, 6) for x in want]} (max |diff| {err:.2e}, tol "
-          f"{TRAIN_LOSS_ATOL}); launches K1 {launches[0]}, K2 "
+          f"{LOSS_ATOL}); launches K1 {launches[0]}, K2 "
           f"{launches[1]}, K3 {launches[2]}")
-    check(err <= TRAIN_LOSS_ATOL, "sharded step's losses disagree with "
+    check(err <= LOSS_ATOL, "sharded step's losses disagree with "
                                   "train_step's")
     check(launches == [TRAIN_STEPS] * 3,
           f"sharded launches K1/K2/K3 {launches}, expected {TRAIN_STEPS} "
@@ -955,7 +968,7 @@ def shardbench_phase(torch, acc, smi_line: str) -> dict:
     mesh (1, 1), the collectives roofline of one rank; launch counts of
     that run. Returns them."""
     from tpu_cluster_torch.kernels import flash_attention as fa
-    from tpu_cluster_torch.workloads import shardbench
+    from tpu_cluster_torch.workloads import burnin, shardbench
 
     kernels = (fa.flash_attention, fa.flash_attention_bwd_dkv,
                fa.flash_attention_bwd_dq)
@@ -977,13 +990,24 @@ def shardbench_phase(torch, acc, smi_line: str) -> dict:
               f"{arm['flops_scope']}, points {arm['points']} ({smi_line})")
         check(0 < mfu <= 1.0, f"shardbench arm {name} MFU {mfu} outside "
                               f"(0, 1]")
-    long = next(a for a in shardbench.plan(doc["devices"], False)
-                if a.name == "long_context")
-    check(doc["arms"]["long_context"]["attention"] == "flash",
+    # every arm whose attention the crossover selector puts on the
+    # kernels launches K1, K2 and K3 once a step it ran (warm-up pair
+    # included); long_context (s8192, d_head 256) must be one of them
+    ran, on_flash = 0, []
+    for arm in shardbench.plan(doc["devices"], False):
+        want = burnin.select_attention(arm.cfg, "cuda")
+        check(doc["arms"][arm.name]["attention"] == want,
+              f"shardbench arm {arm.name} ran "
+              f"{doc['arms'][arm.name]['attention']}, the selector picks "
+              f"{want}")
+        if want == "flash":
+            on_flash.append(arm.name)
+            ran += 4 * arm.steps * (arm.reps + 1)
+    check("long_context" in on_flash,
           "long_context arm not on the flash kernels")
-    ran = 4 * long.steps * (long.reps + 1)
     print(f"shardbench: {wall:.1f} s; launches K1 {launches[0]}, K2 "
-          f"{launches[1]}, K3 {launches[2]} ({ran} long_context steps run)")
+          f"{launches[1]}, K3 {launches[2]} ({ran} steps run by the arms on "
+          f"the kernels: {', '.join(on_flash)})")
     check(launches == [ran] * 3,
           f"shardbench launches K1/K2/K3 {launches}, expected {ran} each")
     roof = doc["collectives"]
@@ -996,6 +1020,109 @@ def shardbench_phase(torch, acc, smi_line: str) -> dict:
               f"{roof['all_gather']['busbw_gib_s']} GiB/s busbw over "
               f"{roof['devices']} ranks")
     return {"launches": launches}
+
+
+def crossover_phase(torch, smi_line: str) -> dict:
+    """The flash crossover (``kernels/crossover.run``): at its check seq,
+    flash against ``xla`` logits and training gradients at both head
+    widths; then the sweep, one row a point beside the card's name and
+    power limit; the seq the rule picks on this run beside the constant
+    in the code. Fails if flash loses to ``xla`` by more than the spread
+    at the constant or above, or if a point launched K1, K2 or K3
+    otherwise than once a flash call. Returns the launch counts by
+    d_head."""
+    from tpu_cluster_torch.kernels import crossover
+
+    for fn in crossover.KERNELS:  # count the main path's run only
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = crossover.run(torch.device("cuda"), smi_line,
+                           say=lambda line: print(f"crossover: {line}"))
+    wall = time.perf_counter() - t0
+    total = [fn.launches for fn in crossover.KERNELS]
+    by_head = result["launches"]
+    print(f"crossover: {len(result['rows']) + len(result['arms'])} points "
+          f"in {wall:.1f} s; launches K1/K2/K3 {total}, by d_head "
+          f"{by_head}")
+    for c in result["checks"]:
+        check(c["ok"], f"crossover check at {c['width']} width failed: {c}")
+    check(not result["against"],
+          "flash loses to xla by more than the spread at or above "
+          "FLASH_CROSSOVER_SEQ: " + "; ".join(
+              crossover.format_row(r) for r in result["against"]))
+    check(result["launches_ok"], "a crossover point launched K1/K2/K3 "
+                                 "otherwise than once a flash call")
+    check(total == [sum(n) for n in zip(*by_head.values())]
+          and sorted(by_head) == [128, 256],
+          f"crossover launches K1/K2/K3 {total} outside its points "
+          f"{by_head}")
+    return by_head
+
+
+def host_phase(torch) -> None:
+    """Discovery of the machine's card nodes, the node labels of its host
+    layout (computed and from the labeler's CLI), and the rendered
+    one-card Jobs: device-query's and vector-add's container command and
+    args run here, on the card, and must exit 0 with ``ok``."""
+    import tempfile
+
+    from tpu_cluster_torch import topology
+    from tpu_cluster_torch.discovery import devices, labels
+    from tpu_cluster_torch.render import jobs
+    from tpu_cluster_torch.spec import GpuSpec
+
+    found = devices.discover()
+    count = torch.cuda.device_count()
+    print(f"host: discovered {len(found)} card node(s) "
+          f"{[d.path for d in found]}; torch sees {count} card(s)")
+    check(len(found) >= count, "fewer card nodes than cards torch sees")
+    name = torch.cuda.get_device_name(0)
+    card = topology.from_device_name(name)
+    host = next((h for h in topology.HOST_TYPES.values()
+                 if h.card is card and h.cards_per_host == count), None)
+    check(host is not None, f"no host layout of {count} {name!r}")
+    got = labels.compute_labels(host.name, found, "chip-smoke")
+    print(f"host: labels of {host.name}: {json.dumps(got, sort_keys=True)}")
+    check(got[labels.PRESENT] == "true"
+          and got[labels.COUNT] == str(len(found))
+          and got[labels.PRODUCT] == name.replace(" ", "-"),
+          f"labels disagree with the card: {got}")
+    cli = subprocess.run(
+        [sys.executable, "-m", "tpu_cluster_torch.discovery.labeler",
+         f"--accelerator={host.name}", "--oneshot", "--print",
+         "--conditions"], capture_output=True, text=True, timeout=120,
+        env={**os.environ, "NODE_NAME": "chip-smoke"})
+    check(cli.returncode == 0, f"labeler: {cli.stderr}")
+    record = json.loads(cli.stdout)
+    # /dev-based discovery may count more nodes than the container's cards
+    # (a node of another card's minor number beside nvidia0): the condition
+    # then reads False on a healthy node, and is printed, not held
+    print(f"host: labeler --oneshot --print --conditions: condition "
+          f"{record['condition']['type']}={record['condition']['status']} "
+          f"({record['condition']['message']}) with {len(found)} card "
+          f"node(s) against {count} card(s) torch sees")
+    check(record["labels"] == got, f"labeler's labels {record['labels']}")
+
+    objs = {o["metadata"]["name"]: o for o in jobs.render_validation_jobs(
+        GpuSpec(accelerator=host.name).validate())}
+    print(f"host: rendered Jobs for {host.name}: {list(objs)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "TPU_METRICS_FILE": os.path.join(tmp, "j.prom")}
+        for job in ("gpu-device-query", "gpu-vector-add"):
+            container = objs[job]["spec"]["template"]["spec"]["containers"][0]
+            argv = container["command"] + container["args"]
+            cards = container["resources"]["limits"]["nvidia.com/gpu"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, capture_output=True, text=True,
+                                  timeout=600, env=env)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"{job} ({' '.join(argv)}) exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+            doc = json.loads(proc.stdout)
+            print(f"host: {job} requests nvidia.com/gpu {cards}: "
+                  f"{' '.join(argv)}: rc 0, ok {doc['ok']}, {wall:.1f} s")
+            check(doc["ok"] is True, f"{job}: {doc}")
 
 
 def profile(torch, label: str, fn, top: int = 10) -> list:
@@ -1069,7 +1196,7 @@ def main() -> int:
     import tpu_cluster_torch.workloads.serving  # noqa: F401
     name, acc, smi_line = device_phase(torch)
     build_phase()
-    k1 = flash_phase(torch, acc)
+    forward = flash_phase(torch, acc)
     backward = backward_phase(torch, acc)
     head_phase(torch)
     served = serving_phase(torch)
@@ -1078,17 +1205,34 @@ def main() -> int:
     timed = timed_phase(torch, acc, trained)
     validate_phase(torch)
     bench = shardbench_phase(torch, acc, smi_line)
-    k2, k3 = backward["flash_attn_bwd_dkv"], backward["flash_attn_bwd_dq"]
-    k1["launches_by_path"] = {"serving": served["launches"]}
-    k1["training_shape"] = backward["k1_training"]
+    profile_phase(torch, served, trained)
+    serving_launches, training_launches = (served["launches"],
+                                           trained["launches"])
+    del served, trained  # the sweep's xla points need the memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross = crossover_phase(torch, smi_line)
+    host_phase(torch)
+    # the records at d_head 256; those at 128 beside them
+    k1 = forward[256]
+    k1["training_shape"] = backward[256]["k1_training"]
+    k1["head_dim_128"] = {**forward[128],
+                          "training_shape": backward[128]["k1_training"]}
+    k2, k3 = (dict(backward[256][n], head_dim_128=backward[128][n])
+              for n in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"))
+    k1["launches_by_path"] = {"serving": serving_launches}
     for i, record in enumerate((k1, k2, k3)):
         by_path = record.setdefault("launches_by_path", {})
-        by_path["training"] = trained["launches"][i]
+        by_path["training"] = training_launches[i]
         by_path["sharded"] = sharded["launches"][i]
         by_path["timed_steps"] = timed["launches"][i]
         by_path["shardbench"] = bench["launches"][i]
+        by_path["crossover"] = cross[256][i]
         record["launches"] = sum(by_path.values())
-    profile_phase(torch, served, trained)
+        # d_head 128 runs on the main paths only in the crossover
+        narrow = record["head_dim_128"]
+        narrow["launches_by_path"] = {"crossover": cross[128][i]}
+        narrow["launches"] = cross[128][i]
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

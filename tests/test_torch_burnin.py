@@ -123,11 +123,16 @@ def test_init_params_rejects_unknown_param_dtype_like_reference():
     assert str(got.value) == str(want.value)
 
 
+@pytest.mark.parametrize("name", ["standard_config", "bench_config"])
+def test_reference_configurations_carry_over(name):
+    assert getattr(port, name)().__dict__ == getattr(ref, name)().__dict__
+
+
 def _selector_configs():
     """The configurations tests/test_shardbench.py drives the reference
-    selector over."""
+    selector over, built around the port's crossover (the H100's)."""
     std = ref.standard_config()
-    cross = ref.FLASH_CROSSOVER_SEQ
+    cross = port.FLASH_CROSSOVER_SEQ
     chunked = replace(std, attention="chunked", attn_block=128)
     return [
         replace(std, seq=cross), replace(std, seq=2 * cross),
@@ -139,8 +144,10 @@ def _selector_configs():
 
 @pytest.mark.parametrize("cfg", _selector_configs(),
                          ids=lambda c: f"s{c.seq}h{c.n_heads}{c.attention}")
-def test_select_attention_agrees_with_reference(cfg):
-    assert port.FLASH_CROSSOVER_SEQ == ref.FLASH_CROSSOVER_SEQ
+def test_select_attention_agrees_with_reference(cfg, monkeypatch):
+    # the reference's rule at the port's constant: its selector reads the
+    # module global when called
+    monkeypatch.setattr(ref, "FLASH_CROSSOVER_SEQ", port.FLASH_CROSSOVER_SEQ)
     pcfg = _to_port(cfg)
     assert port.select_attention(pcfg, "cuda") == \
         ref.select_attention(cfg, "tpu")

@@ -239,3 +239,15 @@ def test_autograd_backward_launches_the_kernels(monkeypatch):
             fa.flash_attention_bwd_dq.launches) == tuple(
                 n + 1 for n in before)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["standard", "bench"])
+def test_crossover_check_point_flash_agrees_with_xla(width):
+    """The crossover sweep's correctness point at full width (d_head 256
+    and 128): flash logits, loss and gradients against the xla path's,
+    within the tolerances chip_smoke.py states."""
+    from tpu_cluster_torch.kernels import crossover
+
+    result = crossover.check_point(width, _card())
+    assert result["ok"], result

@@ -138,3 +138,10 @@ def test_cli_doc_is_json_serialisable():
     for op in ("all_reduce", "all_gather"):
         assert roof[op]["busbw_gib_s"] == 0.0
     assert "link_util" not in roof  # no link rate on the CPU
+
+
+def test_plan_full_arms_past_the_crossover_run_the_kernels_on_a_card():
+    for arm in shardbench.plan(8, tiny=False):
+        want = "flash" if arm.cfg.seq >= burnin.FLASH_CROSSOVER_SEQ else "xla"
+        assert burnin.select_attention(arm.cfg, "cuda") == want
+        assert burnin.select_attention(arm.cfg, "cpu") == "xla"

@@ -429,10 +429,23 @@ def standard_config() -> BurninConfig:
                         n_heads=16, seq=512, batch=8)
 
 
-# The reference's crossover (measured there on a TPU, where the [B,H,S,S]
-# "xla" path wins through s4096). It is carried over unchanged so the two
-# selectors agree; the H100's own crossover is still to be measured.
-FLASH_CROSSOVER_SEQ = 8192
+def bench_config() -> BurninConfig:
+    """The reference's bench train-step configuration, d2048/f131072/h16
+    (d_head 128), vocab 8192: the one reference shape at the kernels'
+    other head width."""
+    return BurninConfig(vocab=8192, d_model=2048, d_ff=131072,
+                        n_heads=16, seq=512, batch=8)
+
+
+# The H100's own crossover, measured by kernels/crossover.py on an NVIDIA
+# H100 80GB HBM3 at a 700 W power limit (PERF.md section 6, "The flash
+# crossover"): the smallest grid seq from which flash beats the "xla"
+# path by more than the spread on the serving and training paths at both
+# head widths, at that seq and every larger one (crossover.pick_crossover).
+# Eight recorded runs picked 256 to 2048; the constant is the largest: on
+# runs 5 and 7 the training path at d_head 256 won at s1024 by less than
+# its spread. The reference's TPU value is 8192.
+FLASH_CROSSOVER_SEQ = 2048
 
 
 def select_attention(cfg: BurninConfig, platform: str) -> str:

@@ -1,8 +1,8 @@
 """Multi-host bootstrap plumbing for the port's Jobs: the counterpart of
 ``tpu_cluster/workloads/multihost.py``, over ``torch.distributed``.
 
-The env contract is the reference's unchanged, because the Job renderer
-(``tpu_cluster/render/jobs.py``) injects it:
+The env contract is the reference's unchanged; the port's Job renderer
+(``tpu_cluster_torch/render/jobs.py``) injects it as the reference's does:
 
   TPU_WORKER_ID        index of this pod within the Job (0..N-1)
   JOB_COMPLETION_INDEX the Indexed Job's own index, used when

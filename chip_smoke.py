@@ -88,7 +88,23 @@ Phases, each fatal when it fails:
    and must exit 0, the latter with the computed labels and ``GpuReady``
    True; and the validation Jobs' device-query and vector-add
    containers' command and args run here on the card and must exit 0
-   with ``ok``.
+   with ``ok``. Then the apply path: on an in-process fake apiserver
+   (``tests/fake_apiserver.py``, loaded by path), the port's
+   ``kubeapply.Client`` with telemetry and ``lint_mode="error"`` applies
+   that stack (operand groups with ``wait=True``, the operator install,
+   the Jobs): every object must be stored, no workload of a group may be
+   created before every workload of the group before it was read Ready
+   (the server's request log), the trace must hold one ``rollout`` span a
+   bundle with a ``group-N`` span a group and its ``apply`` and
+   ``ready-wait`` phases, and no request may have been retried;
+   ``delete_groups`` must leave none of the objects. ``python -m
+   tpu_cluster_torch apply --apiserver URL --wait``, with PyYAML made
+   unimportable, must exit 0 with ``apply: converged`` and a trace. And
+   ``verify``: the labels, conditions, allocatable, device-query and
+   vector-add checks must pass on a runner that answers ``kubectl`` from
+   this phase's own output (feature discovery's record, the two Jobs'
+   exit codes and logs), and ``conditions`` must fail when that record's
+   ``GpuReady`` is False.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a card, or without the
@@ -1168,6 +1184,7 @@ def host_phase(torch) -> None:
 
     objs = {o["metadata"]["name"]: o for o in bundles["jobs"][0]}
     print(f"host: rendered Jobs for {host.name}: {list(objs)}")
+    runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         env = {**os.environ, "TPU_METRICS_FILE": os.path.join(tmp, "j.prom")}
         for job in ("gpu-device-query", "gpu-vector-add"):
@@ -1185,6 +1202,213 @@ def host_phase(torch) -> None:
             print(f"host: {job} requests nvidia.com/gpu {cards}: "
                   f"{' '.join(argv)}: rc 0, ok {doc['ok']}, {wall:.1f} s")
             check(doc["ok"] is True, f"{job}: {doc}")
+            runs[job] = proc
+    apply_step(spec, bundles)
+    verify_step(spec, record, len(found), runs)
+
+
+def _load_fake_apiserver():
+    """The repository's in-process fake kube-apiserver (stdlib only; it
+    imports neither package), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fake_apiserver.py")
+    mod_spec = importlib.util.spec_from_file_location("fake_apiserver", path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+def _gated_in_order(log, groups, kubeapply) -> list:
+    """Workloads created before every workload of the last earlier group
+    holding any was read Ready, from the server's request log: a
+    workload's create is the server-side-apply PATCH of its path, and its
+    Ready read the first GET of its path or collection after that (the
+    server fills a workload's status at create). Empty = gated."""
+    entries = [(m, p.split("?")[0]) for m, p in log]
+
+    def created(obj):
+        path = kubeapply.object_path(obj)
+        return next((i for i, (m, p) in enumerate(entries)
+                     if m == "PATCH" and p == path), None)
+
+    def read_ready(obj, after):
+        paths = (kubeapply.object_path(obj), kubeapply.collection_path(obj))
+        return next((i for i, (m, p) in enumerate(entries)
+                     if i > after and m == "GET" and p in paths), None)
+
+    bad, gate, gate_names = [], None, []
+    for group in groups:
+        work = [o for o in group if o["kind"] in kubeapply.WORKLOAD_KINDS]
+        if not work:
+            continue
+        made = {o["metadata"]["name"]: created(o) for o in work}
+        if None in made.values():
+            return [f"no create of {made}"]
+        if gate is not None and min(made.values()) <= gate:
+            bad.append(f"{sorted(made)} created at request "
+                       f"{min(made.values())}, before {gate_names} were read "
+                       f"Ready (request {gate})")
+        reads = [read_ready(o, made[o["metadata"]["name"]]) for o in work]
+        if None in reads:
+            return [f"{sorted(made)} never read after their create"]
+        gate, gate_names = max(reads), sorted(made)
+    return bad
+
+
+def apply_step(spec, bundles) -> None:
+    """The port's apply engine on the card's own stack, against the fake
+    apiserver: stored, gated group by group, traced, no retries; then
+    deleted. Then the CLI's REST path without PyYAML."""
+    import tempfile
+
+    from tpu_cluster_torch import kubeapply, telemetry
+
+    fake = _load_fake_apiserver()
+    order = ("operands", "operator", "jobs")
+    everything = [obj for what in order for group in bundles[what]
+                  for obj in group]
+    paths = sorted({kubeapply.object_path(o) for o in everything})
+    tel = telemetry.Telemetry()
+    with fake.FakeApiServer(auto_ready=True) as api:
+        client = kubeapply.Client(api.url, telemetry=tel)
+        try:
+            t0 = time.perf_counter()
+            for what in order:
+                t1 = time.perf_counter()
+                result = kubeapply.apply_groups(
+                    client, bundles[what], wait=True, stage_timeout=60,
+                    poll=0.05, lint_mode="error", lint_spec=spec,
+                    apply_mode="ssa", log=lambda msg: None)
+                print(f"host: apply {what}: {len(result.actions)} object(s) "
+                      f"in {len(bundles[what])} group(s), "
+                      f"{time.perf_counter() - t1:.2f} s; "
+                      f"{result.timings_line()}")
+            wall = time.perf_counter() - t0
+            missing = [p for p in paths if api.get(p) is None]
+            print(f"host: applied {len(paths)} object(s) in {wall:.2f} s, "
+                  f"{len(api.log)} request(s), {client.retries} retried")
+            check(not missing, f"applied objects absent from the store: "
+                               f"{missing}")
+            check(client.retries == 0, f"{client.retries} request(s) retried")
+            groups = [g for what in order for g in bundles[what]]
+            early = _gated_in_order(list(api.log), groups, kubeapply)
+            check(not early, "a group was applied before the one before it "
+                             "was read Ready: " + "; ".join(early))
+            rollouts = [s for s in tel.tracer.roots if s.name == "rollout"]
+            check(len(rollouts) == len(order),
+                  f"{len(rollouts)} rollout span(s) for {len(order)} "
+                  "bundle(s)")
+            for what, span in zip(order, rollouts):
+                kids = [c.name for c in span.children]
+                want = [f"group-{i + 1}" for i in range(len(bundles[what]))]
+                check(kids == want, f"{what}: rollout's children {kids}")
+                for g in span.children:
+                    phases = {c.name for c in g.children if c.cat == "phase"}
+                    check({"apply", "ready-wait"} <= phases,
+                          f"{what} {g.name}: phases {sorted(phases)}")
+            print(f"host: trace: {len(rollouts)} rollout span(s), groups "
+                  f"{[len(s.children) for s in rollouts]}, each with its "
+                  "apply and ready-wait phases")
+            t1 = time.perf_counter()
+            for what in reversed(order):
+                kubeapply.delete_groups(client, bundles[what],
+                                        log=lambda msg: None)
+            left = [p for p in paths if api.get(p) is not None]
+            print(f"host: deleted in {time.perf_counter() - t1:.2f} s; "
+                  f"{len(left)} object(s) left")
+            check(not left, f"delete left {left}")
+        finally:
+            client.close()
+
+    # the CLI's REST path with PyYAML made unimportable, whether or not
+    # this machine has it: only the kubectl backend and `render` need it
+    no_yaml = ("import runpy, sys; sys.modules['yaml'] = None; "
+               "runpy.run_module('tpu_cluster_torch', run_name='__main__', "
+               "alter_sys=True)")
+    with fake.FakeApiServer(auto_ready=True) as api, \
+            tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "apply-trace.json")
+        argv = [sys.executable, "-c", no_yaml, "apply",
+                "--apiserver", api.url, "--wait", "--poll", "0.05",
+                "--trace-out", trace,
+                "--flight-recorder", os.path.join(tmp, "flight.json")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0 and "apply: converged" in proc.stdout,
+              f"{' '.join(argv[3:])} exited {proc.returncode}: "
+              f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+        with open(trace, encoding="utf-8") as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X"]
+        check(any(e["name"] == "rollout" for e in spans),
+              "the CLI's trace has no rollout span")
+        print(f"host: python -m tpu_cluster_torch apply --apiserver URL "
+              f"--wait with PyYAML blocked: rc 0, apply: converged, "
+              f"{len(api.store)} object(s), {len(api.log)} request(s), "
+              f"trace of {len(spans)} span(s), {wall:.2f} s")
+
+
+def verify_step(spec, record: dict, cards: int, runs: dict) -> None:
+    """``verify``'s checks against a runner that answers ``kubectl`` from
+    this phase's own output, and one control that must fail."""
+    from tpu_cluster_torch import verify
+
+    ns = spec.gpu.namespace
+
+    def runner_for(condition: dict):
+        node = {"apiVersion": "v1", "kind": "Node",
+                "metadata": {"name": "chip-smoke",
+                             "labels": dict(record["labels"])},
+                "status": {
+                    "conditions": [{"type": "Ready", "status": "True"},
+                                   condition],
+                    "allocatable": {spec.gpu.resource_name: str(cards)}}}
+        nodes = json.dumps({"kind": "List", "items": [node]})
+        answers = {
+            ("kubectl", "get", "nodes", "-o", "json"): nodes,
+            ("kubectl", "get", "nodes", "-l", verify.PRESENT_SELECTOR,
+             "-o", "json"): nodes,
+        }
+        for job, proc in runs.items():
+            done = ({"succeeded": 1} if proc.returncode == 0
+                    else {"failed": 1})
+            answers[("kubectl", "get", "job", "-n", ns, job, "-o",
+                     "json")] = json.dumps(
+                {"kind": "Job", "metadata": {"name": job},
+                 "spec": {"completions": 1}, "status": done})
+            # kubectl logs merges the container's streams; a piped
+            # stdout is flushed at exit, after every stderr line
+            answers[("kubectl", "logs", "-n", ns, f"job/{job}")] = (
+                proc.stderr + proc.stdout)
+
+        def runner(argv):
+            out = answers.get(tuple(argv))
+            return (1, "") if out is None else (0, out)
+        return runner
+
+    names = ["labels", "conditions", "allocatable", "device-query",
+             "vector-add"]
+    snapshot = verify.ClusterSnapshot(runner_for(record["condition"]))
+    results = verify.run_checks(names, spec, snapshot)
+    for res in results:
+        print(f"host: verify {res.line()}")
+    print(f"host: verify snapshot: {snapshot.fetches} kubectl call(s) "
+          f"served {len(results)} check(s)")
+    check([r.name for r in results] == names and all(r.ok for r in results),
+          "verify failed on the card's own output: "
+          + "; ".join(r.line() for r in results if not r.ok))
+    control = verify.run_checks(
+        ["conditions"], spec,
+        runner_for({**record["condition"], "status": "False",
+                    "reason": "DegradedGpuSet"}))[0]
+    print(f"host: verify control (GpuReady False): {control.line()}")
+    check(not control.ok, "verify's conditions check passed a node whose "
+                          "GpuReady is False")
 
 
 def profile(torch, label: str, fn, top: int = 10) -> list:

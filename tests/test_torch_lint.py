@@ -26,7 +26,7 @@ from tpu_cluster import lint as ref_lint
 from tpu_cluster import spec as ref_specmod
 from tpu_cluster.render import operator_bundle as ref_bundle
 from tpu_cluster_torch import __main__ as cli
-from tpu_cluster_torch import lint
+from tpu_cluster_torch import kubeapply, lint
 from tpu_cluster_torch import spec as specmod
 from tpu_cluster_torch.render import jobs, manifests, operator_bundle
 
@@ -303,11 +303,13 @@ def test_gate_modes():
 
 
 def test_tier_and_scope_tables_equal_the_reference_apply_engine():
-    assert lint._TIER_FIRST == ref_kubeapply._TIER_FIRST
-    assert lint.WORKLOAD_KINDS == ref_kubeapply.WORKLOAD_KINDS
-    assert lint._KIND_SCOPE == {
-        kind: scoped for kind, (_, scoped) in ref_kubeapply._KINDS.items()
-        if kind != "TpuStackPolicy"}
+    assert lint._TIER_FIRST is kubeapply._TIER_FIRST
+    assert lint.WORKLOAD_KINDS is kubeapply.WORKLOAD_KINDS
+    assert lint._KINDS is kubeapply._KINDS
+    assert lint.ApplyError is kubeapply.ApplyError
+    assert kubeapply._TIER_FIRST == ref_kubeapply._TIER_FIRST
+    assert kubeapply.WORKLOAD_KINDS == ref_kubeapply.WORKLOAD_KINDS
+    assert kubeapply._KINDS == ref_kubeapply._KINDS
     group = [mk_namespace(), operator_bundle.crd(), mk_sa("s"),
              mk_configmap("c"), mk_workload(name="d"),
              mk_workload(kind="Deployment", name="dep"),

@@ -1,15 +1,37 @@
-"""The port's CLI (``python -m tpu_cluster_torch``): the render and lint
-halves of the reference's ``tpuctl`` (``tpu_cluster/__main__.py``), with
-its arguments, artifact names and exit codes.
+"""The port's CLI (``python -m tpu_cluster_torch``): the render, lint,
+apply, delete, events, verify and triage commands of the reference's
+``tpuctl`` (``tpu_cluster/__main__.py``), with its flags, defaults,
+messages and exit codes.
 
   render   cluster spec -> node-prep / kubeadm scripts, operand manifests,
            validation Jobs, operator install, operator bundle
   lint     static cross-object analysis of the rendered bundle (rules
            R01-R07: duplicates, dangling refs, selectors, apply order,
            GPU resource sanity, image pins, gang shape)
+  apply    rollout against the apiserver, gating each group on readiness
+           (--operator deploys the in-cluster controller instead); runs
+           the linter first (--lint=warn default, error blocks pre-request);
+           applies via server-side apply by default (--apply-mode) with a
+           sticky merge-patch fallback for pre-SSA apiservers
+  delete   remove everything a spec renders, reverse order
+           (helm uninstall analog)
+  events   list or stream (--follow) the Kubernetes Events the stack's
+           controllers record (Retrying/RetryExhausted, HedgeFired,
+           WatchResumed ...), each row joined with the rollout trace that
+           caused it via the tpu-stack.dev/traceparent annotation
+  verify   the executable acceptance runbook
+  triage   the executable troubleshooting runbook
 
     python -m tpu_cluster_torch render --out DIR [--spec FILE] [--multihost N]
     python -m tpu_cluster_torch lint [--strict] [--operator] [--format json]
+    python -m tpu_cluster_torch apply [--apiserver URL] [--wait] [--operator]
+    python -m tpu_cluster_torch delete [--apiserver URL] [--operator]
+    python -m tpu_cluster_torch events --apiserver URL [--for OBJ] [--follow]
+    python -m tpu_cluster_torch verify [--config all|CHECKS] [--json]
+    python -m tpu_cluster_torch triage
+
+The REST backend (``--apiserver``) needs no PyYAML; the kubectl backend
+and ``render`` import it.
 """
 
 from __future__ import annotations
@@ -18,10 +40,14 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import Dict
 
+from . import events as eventsmod
+from . import kubeapply
 from . import lint as lintmod
 from . import spec as specmod
+from . import telemetry, triage, verify
 from .render import jobs, kubeadm, manifests, nodeprep, operator_bundle
 
 
@@ -78,13 +104,281 @@ def cmd_render(args) -> int:
     return 0
 
 
+def _retry_policy(args) -> kubeapply.RetryPolicy:
+    """The rollout failure taxonomy, tuned by --retry-attempts/--retry-base
+    (429/5xx/transport retried with jittered exponential backoff honoring
+    Retry-After; 409 re-GET-then-re-PATCH; other 4xx terminal)."""
+    return kubeapply.RetryPolicy(attempts=max(1, args.retry_attempts),
+                                 base_s=max(0.0, args.retry_base))
+
+def _rest_client(args):
+    """Client for --apiserver mode, or None for the kubectl backend."""
+    if not args.apiserver:
+        return None
+    token = ""
+    if args.token_file:
+        with open(args.token_file, encoding="utf-8") as f:
+            token = f.read().strip()
+    return kubeapply.Client(
+        args.apiserver, token=token, ca_file=args.ca_file,
+        insecure_skip_tls_verify=args.insecure_skip_tls_verify,
+        retry=_retry_policy(args),
+        # fleet-scale knobs: the multiplexed transport pool
+        # and the paginated-LIST page size (both default OFF — the
+        # pre-fleet byte-identical paths)
+        mux=(getattr(args, "mux", None) or None),
+        list_page_limit=(getattr(args, "page_limit", None) or None))
+
+def _kubectl_mode_flags_ok(args, cmd: str) -> bool:
+    if args.token_file or args.ca_file:
+        print(f"{cmd}: --token-file/--ca-file need --apiserver "
+              "(the kubectl backend authenticates via kubeconfig)",
+              file=sys.stderr)
+        return False
+    return True
+
+
 def _spec_groups(args):
-    """(spec, groups): the operand rollout groups, or the operator install
-    waves with --operator."""
+    """(spec, groups): the rendered bundle an apply/delete/lint command
+    operates on — operand rollout groups, or the operator install waves
+    with --operator (the TpuStackPolicy CR must trail its CRD's
+    establishment, see operator_bundle.operator_install_groups)."""
     spec = _load_spec(args.spec)
     if args.operator:
         return spec, operator_bundle.operator_install_groups(spec)
     return spec, manifests.rollout_groups(spec)
+
+
+def _lint_external(args):
+    """The pre-existing-on-cluster allowlist: built-ins plus every
+    --allow-external the invocation carried (shared by lint and the
+    apply gate, so a waiver that satisfies `lint` also satisfies
+    `apply --lint=error`)."""
+    return frozenset(lintmod.DEFAULT_EXTERNAL) | \
+        frozenset(getattr(args, "allow_external", None) or [])
+
+def _flight_recorder_path(args) -> str:
+    """Where the always-on flight recorder dumps: the explicit flag, or
+    a stable PER-USER file in the system temp dir ('' = disabled via
+    --flight-recorder=off). Per-user (uid suffix) on purpose: a shared
+    well-known name in a world-writable directory would let one user's
+    dump collide with — or be squatted by — another's; the atomic
+    writer's mkstemp scratch file covers the symlink half."""
+    if args.flight_recorder == "off":
+        return ""
+    if args.flight_recorder:
+        return args.flight_recorder
+    import tempfile
+    uid = os.getuid() if hasattr(os, "getuid") else 0
+    return os.path.join(tempfile.gettempdir(),
+                        f"tpuctl-flight-{uid}.json")
+
+def cmd_apply(args) -> int:
+    spec, groups = _spec_groups(args)
+    # REST backend: telemetry is ALWAYS armed — the bounded flight
+    # recorder rides on it, so a crashed rollout leaves a post-mortem
+    # trace even when --trace-out wasn't passed. The kubectl
+    # backend delegates the wire to kubectl, so telemetry stays opt-in
+    # there (the spans would be empty anyway — see the note below).
+    # Library callers are untouched: Client.telemetry defaults to None,
+    # zero overhead.
+    recorder = None
+    rest_mode = bool(args.apiserver)
+    fr_path = _flight_recorder_path(args) if rest_mode else ""
+    if fr_path:
+        recorder = telemetry.FlightRecorder(fr_path)
+    # armed only when SOMETHING consumes it: the recorder (on by
+    # default, --flight-recorder=off disables), an output flag, or an
+    # armed Events recorder (which stamps each Event with the run's
+    # trace id and counts emit failures) — an explicit full opt-out
+    # must get the telemetry=None zero-overhead path, not an unconsumed
+    # span tree
+    tel = (telemetry.Telemetry(recorder=recorder)
+           if (recorder is not None or args.trace_out or args.metrics_out
+               or (rest_mode and args.events))
+           else None)
+    if rest_mode:
+        # SIGTERM must dump, like a crash: raising SystemExit lets the
+        # finally block below flush the recorder and write --trace-out
+        # before the process dies with the conventional 143. (A SIGKILL
+        # can't be caught — that's what the recorder's incremental
+        # atomic flushes are for.)
+        import signal as _signal
+
+        def _on_sigterm(signum, frame):  # pragma: no cover - signal path
+            raise SystemExit(128 + signum)
+
+        try:
+            _signal.signal(_signal.SIGTERM, _on_sigterm)
+        except ValueError:
+            pass  # not the main thread (embedded use): no handler
+    if args.max_inflight is not None and not args.parallel:
+        print("apply: note: --max-inflight has no effect without "
+              "--parallel", file=sys.stderr)
+    if args.parallel and args.max_inflight is not None \
+            and args.max_inflight < 2:
+        print("apply: --max-inflight must be >= 2 with --parallel (the "
+              "pipelined engine is the concurrent path; drop --parallel "
+              "for the sequential one)", file=sys.stderr)
+        return 2
+    max_inflight = ((8 if args.max_inflight is None else args.max_inflight)
+                    if args.parallel else 1)
+    if args.resume and not args.journal:
+        print("apply: --resume needs --journal PATH (the journal a "
+              "previous run recorded)", file=sys.stderr)
+        return 2
+    journal = None
+    if args.journal:
+        journal = kubeapply.RolloutJournal(args.journal, groups,
+                                           resume=args.resume)
+        if args.resume and not journal.resumed:
+            # missing file or a different rendered bundle: resuming it
+            # would skip work that never happened — say so, start fresh
+            print("apply: note: journal absent or from a different bundle; "
+                  "starting a fresh rollout", file=sys.stderr)
+        elif args.resume:
+            print("apply: resuming from journal "
+                  f"{args.journal} (completed groups will be skipped)")
+    # The rollout-wide deadline budget (--deadline): armed HERE, before
+    # the first request, so render/lint time already spent counts too on
+    # the kubectl path's clamps; both backends thread it through.
+    budget = (kubeapply.DeadlineBudget(args.deadline)
+              if args.deadline is not None else None)
+    try:
+        client = _rest_client(args)
+        if client is not None:
+            client.telemetry = tel
+            client.budget = budget
+            client.hedge_s = args.hedge
+            if args.events:
+                # the Events pipeline: operational Events
+                # (Retrying/RetryExhausted/DeadlineExceeded/HedgeFired/
+                # WatchResumed) recorded next to the objects they
+                # happened for — fail-open, one attempt each, never on
+                # the critical path
+                client.events = eventsmod.EventRecorder(
+                    client, component="tpuctl", telemetry=tel)
+            try:
+                result = kubeapply.apply_groups(
+                    client, groups, wait=args.wait,
+                    stage_timeout=args.stage_timeout, poll=args.poll,
+                    allow_empty_daemonsets=args.allow_empty_daemonsets,
+                    log=lambda msg: print(msg), max_inflight=max_inflight,
+                    watch_ready=args.watch, journal=journal,
+                    lint_mode=args.lint, lint_spec=spec,
+                    lint_external=_lint_external(args),
+                    apply_mode=args.apply_mode)
+            finally:
+                client.close()
+            if client.retries:
+                print(f"apply: retried {client.retries} request(s) "
+                      "against a flaky apiserver")
+            if client.hedges:
+                print(f"apply: hedged {client.hedges} slow idempotent "
+                      "read(s) with backup attempts")
+            if args.wait:
+                print(f"rollout phases: {result.timings_line()}")
+        else:
+            if not _kubectl_mode_flags_ok(args, "apply"):
+                return 2
+            if args.parallel:
+                print("apply: note: --parallel has no effect on the kubectl "
+                      "backend (kubectl apply already batches per group); "
+                      "pass --apiserver to use the pipelined engine",
+                      file=sys.stderr)
+            if args.watch:
+                print("apply: note: --watch has no effect on the kubectl "
+                      "backend (kubectl rollout status blocks on its own "
+                      "watch); pass --apiserver for event-driven readiness",
+                      file=sys.stderr)
+            if args.apply_mode != "auto":
+                print("apply: note: --apply-mode has no effect on the "
+                      "kubectl backend (kubectl apply manages its own "
+                      "patching); pass --apiserver for server-side apply",
+                      file=sys.stderr)
+            if args.poll != 1.0:
+                print("apply: note: --poll has no effect on the kubectl "
+                      "backend (kubectl rollout status does its own "
+                      "polling)", file=sys.stderr)
+            if args.hedge is not None:
+                print("apply: note: --hedge has no effect on the kubectl "
+                      "backend (kubectl owns its own transport); pass "
+                      "--apiserver for hedged reads", file=sys.stderr)
+            if args.events:
+                print("apply: note: --events has no effect on the "
+                      "kubectl backend (the recorder posts through the "
+                      "REST client); pass --apiserver for the Events "
+                      "pipeline", file=sys.stderr)
+            if tel is not None:
+                print("apply: note: --trace-out/--metrics-out instrument "
+                      "the REST engine's requests; the kubectl backend "
+                      "delegates the wire to kubectl, so its outputs "
+                      "will be empty — pass --apiserver for a real trace",
+                      file=sys.stderr)
+            # no URL given: use kubectl from PATH (the reference guide's
+            # control-plane-node workflow)
+            kubeapply.apply_groups_kubectl(
+                groups, wait=args.wait, stage_timeout=args.stage_timeout,
+                allow_empty_daemonsets=args.allow_empty_daemonsets,
+                log=lambda msg: print(msg), retry=_retry_policy(args),
+                journal=journal, lint_mode=args.lint, lint_spec=spec,
+                lint_external=_lint_external(args), budget=budget)
+    except kubeapply.ApplyError as exc:
+        print(f"apply failed: {exc}", file=sys.stderr)
+        if recorder is not None:
+            print(f"apply: flight recorder dump (last "
+                  f"{recorder.capacity} spans/retries): {recorder.path}",
+                  file=sys.stderr)
+        return 1
+    finally:
+        if journal is not None:
+            journal.close()
+        if recorder is not None:
+            # final flush on EVERY exit path — converged, ApplyError,
+            # SIGTERM's SystemExit — so the on-disk ring is current
+            recorder.flush()
+        # written even when the rollout FAILED: a crashed rollout's trace
+        # (unfinished spans marked, retries annotated) is the one worth
+        # reading. An unwritable output path must not crash a converged
+        # rollout or mask a real ApplyError — report and move on.
+        if tel is not None and args.trace_out:
+            try:
+                tel.write_trace(args.trace_out)
+                print(f"apply: trace written to {args.trace_out} "
+                      "(chrome://tracing / Perfetto)")
+            except OSError as exc:
+                print(f"apply: cannot write trace to {args.trace_out}: "
+                      f"{exc}", file=sys.stderr)
+        if tel is not None and args.metrics_out:
+            try:
+                tel.write_metrics(args.metrics_out)
+                print(f"apply: metrics written to {args.metrics_out}")
+            except OSError as exc:
+                print(f"apply: cannot write metrics to "
+                      f"{args.metrics_out}: {exc}", file=sys.stderr)
+    print("apply: converged" if args.wait else "apply: submitted")
+    return 0
+
+def cmd_delete(args) -> int:
+    _spec, groups = _spec_groups(args)
+    try:
+        client = _rest_client(args)
+        if client is not None:
+            try:
+                kubeapply.delete_groups(client, groups,
+                                        log=lambda msg: print(msg))
+            finally:
+                client.close()
+        else:
+            if not _kubectl_mode_flags_ok(args, "delete"):
+                return 2
+            kubeapply.delete_groups_kubectl(groups,
+                                            log=lambda msg: print(msg))
+    except kubeapply.ApplyError as exc:
+        print(f"delete failed: {exc}", file=sys.stderr)
+        return 1
+    print("delete: done")
+    return 0
 
 
 def cmd_lint(args) -> int:
@@ -92,9 +386,8 @@ def cmd_lint(args) -> int:
     (warnings tolerated unless --strict), 1 = findings, 2 = bad
     invocation/spec."""
     spec, groups = _spec_groups(args)
-    external = frozenset(lintmod.DEFAULT_EXTERNAL) | frozenset(
-        args.allow_external)
-    findings = lintmod.lint_groups(groups, spec=spec, external=external)
+    findings = lintmod.lint_groups(groups, spec=spec,
+                                   external=_lint_external(args))
     errs = lintmod.errors(findings)
     failing = findings if args.strict else errs
     if args.format == "json":
@@ -111,9 +404,218 @@ def cmd_lint(args) -> int:
     return 1 if failing else 0
 
 
+def _print_event_rows(client, rows, as_json: bool) -> None:
+    cache: Dict[str, str] = {}
+    joined = [(e, eventsmod.trace_of_event(client, e, cache))
+              for e in rows]
+    if as_json:
+        print(json.dumps({"events": [
+            dict(e, trace=t) for e, t in joined]}))
+        return
+    print(eventsmod.EVENT_HEADER)
+    for e, t in joined:
+        print(eventsmod.format_event_row(e, t))
+    if not joined:
+        print("(no events)")
+
+def _follow_events(client, namespaces, args) -> int:
+    """`events --follow`: print the current Events of every
+    target namespace, then stream new/updated ones off ?watch=1
+    streams until interrupted (or --follow-seconds elapses — the
+    scripting/test bound). Each namespace's initial rows and its watch
+    resourceVersion come from the SAME collection GET, so an Event
+    posted between listing and watching is never silently skipped.
+    With several namespaces (the default: the GPU namespace plus
+    'default', where Events about cluster-scoped objects land) the
+    watches round-robin on short windows — one connection at a time,
+    worst-case inter-namespace latency one window."""
+    colls = [f"/api/v1/namespaces/{ns}/events" for ns in namespaces]
+    cache: Dict[str, str] = {}
+    rv: Dict[str, str] = {}
+    rows = []
+    for coll in colls:
+        code, body = client.get(coll)
+        if code == 200:
+            rv[coll] = str(((body or {}).get("metadata") or {})
+                           .get("resourceVersion") or "")
+            rows.extend((body or {}).get("items") or [])
+        else:
+            rv[coll] = ""
+    rows.sort(key=lambda e: (str(e.get("lastTimestamp", "")),
+                             str((e.get("metadata") or {})
+                                 .get("name", ""))))
+    if args.for_:
+        rows = [e for e in rows if eventsmod.event_matches(e, args.for_)]
+    print(eventsmod.EVENT_HEADER, flush=True)
+    for e in rows:
+        print(eventsmod.format_event_row(
+            e, eventsmod.trace_of_event(client, e, cache)), flush=True)
+    deadline = (time.monotonic() + args.follow_seconds
+                if args.follow_seconds > 0 else None)
+    # single namespace: long windows (one mostly-idle connection);
+    # several: short windows so each namespace is streamed in turn
+    max_window = 30 if len(colls) == 1 else 2
+    try:
+        while deadline is None or time.monotonic() < deadline:
+            for coll in colls:
+                left = (deadline - time.monotonic()
+                        if deadline is not None else max_window)
+                if left <= 0:
+                    break
+                window = max(1, min(max_window, int(left) + 1))
+                try:
+                    conn, resp = client._open_watch(coll, rv[coll],
+                                                    window)
+                except (kubeapply._WatchDenied, OSError) as exc:
+                    print(f"events: watch failed ({exc}); retrying",
+                          file=sys.stderr)
+                    time.sleep(0.5)
+                    continue
+                try:
+                    while deadline is None \
+                            or time.monotonic() < deadline:
+                        try:
+                            raw = resp.readline()
+                        except OSError:
+                            # stream died (apiserver restart, reset):
+                            # re-open from the held RV, same as the
+                            # informer's pump
+                            break
+                        if not raw:
+                            break  # window over: re-open from held RV
+                        try:
+                            ev = json.loads(raw)
+                        except ValueError:
+                            continue
+                        obj = ev.get("object") or {}
+                        if ev.get("type") == "ERROR":
+                            rv[coll] = ""  # compacted: resume from now
+                            break
+                        new_rv = (obj.get("metadata") or {}).get(
+                            "resourceVersion")
+                        if new_rv:
+                            rv[coll] = str(new_rv)
+                        if ev.get("type") == "DELETED" \
+                                or obj.get("kind") != "Event":
+                            continue
+                        if args.for_ and not eventsmod.event_matches(
+                                obj, args.for_):
+                            continue
+                        print(eventsmod.format_event_row(
+                            obj, eventsmod.trace_of_event(client, obj,
+                                                          cache)),
+                              flush=True)
+                finally:
+                    conn.close()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+def cmd_events(args) -> int:
+    """List or stream the Events the stack's controllers record (the
+    third observability pillar): `events [--for OBJ]` joins each
+    row with the causing rollout trace; `--follow` streams."""
+    if not args.apiserver:
+        print("events: --apiserver URL required (Events live on the "
+              "cluster)", file=sys.stderr)
+        return 2
+    spec = _load_spec(args.spec)
+    namespaces = ([args.namespace] if args.namespace
+                  else [spec.gpu.namespace, "default"])
+    namespaces = list(dict.fromkeys(namespaces))
+    client = _rest_client(args)
+    assert client is not None
+    try:
+        if args.follow:
+            return _follow_events(client, namespaces, args)
+        rows = eventsmod.fetch_events(client, namespaces)
+        if args.for_:
+            rows = [e for e in rows
+                    if eventsmod.event_matches(e, args.for_)]
+        _print_event_rows(client, rows, args.json)
+    finally:
+        client.close()
+    return 0
+
+def cmd_verify(args) -> int:
+    spec = _load_spec(args.spec)
+    names = (list(verify.CHECKS) if args.config == "all"
+             else [c.strip() for c in args.config.split(",") if c.strip()])
+    if not names:
+        # a typo'd empty list must not turn the runbook into a free pass
+        print(f"--config selected no checks; known: {list(verify.CHECKS)}",
+              file=sys.stderr)
+        return 2
+    # One snapshot per run: every check reads the same instant of cluster
+    # state, and identical kubectl invocations are fetched once and shared.
+    snapshot = verify.ClusterSnapshot(verify.subprocess_runner)
+    try:
+        results = verify.run_checks(names, spec, snapshot)
+    except KeyError as exc:
+        print(exc, file=sys.stderr)
+        return 2
+    ok = all(r.ok for r in results)
+    if args.json:
+        # machine-readable runbook result (CI gates, driver artifacts)
+        print(json.dumps({
+            "ok": ok,
+            "checks": [{"name": r.name, "ok": r.ok, "detail": r.detail}
+                       for r in results],
+            "kubectl_calls": snapshot.fetches,
+        }))
+    else:
+        for res in results:
+            print(res.line())
+        print(f"(snapshot: {snapshot.fetches} kubectl invocation(s) "
+              f"served {len(results)} check(s))")
+    return 0 if ok else 1
+
+def cmd_triage(args) -> int:
+    spec = _load_spec(args.spec)
+    print(triage.run_triage(spec).text())
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m tpu_cluster_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    # apiserver-connection flags shared by apply/delete (the _rest_client /
+    # _kubectl_mode_flags_ok pair consumes them identically)
+    conn = argparse.ArgumentParser(add_help=False)
+    conn.add_argument("--spec", default="")
+    conn.add_argument("--apiserver", default="",
+                      help="apiserver base URL (kubectl proxy: "
+                           "http://127.0.0.1:8001, or https://<host>:6443); "
+                           "omit to use kubectl from PATH")
+    conn.add_argument("--token-file", default="")
+    conn.add_argument("--ca-file", default=None)
+    conn.add_argument("--insecure-skip-tls-verify", action="store_true",
+                      help="allow https to an apiserver without CA "
+                           "verification (DANGEROUS: exposes the bearer "
+                           "token to MITM)")
+    conn.add_argument("--retry-attempts", type=int, default=5,
+                      help="total tries per apiserver request: 429/5xx and "
+                           "transport failures are retried with jittered "
+                           "exponential backoff honoring Retry-After; "
+                           "other 4xx fail immediately (default 5; 1 "
+                           "disables retries)")
+    conn.add_argument("--retry-base", type=float, default=0.1,
+                      help="first retry backoff in seconds, doubling per "
+                           "attempt up to a 5s cap (default 0.1)")
+    conn.add_argument("--mux", type=int, default=0, metavar="POOL",
+                      help="multiplexed transport (fleet scale): route "
+                           "every request through one shared pool of at "
+                           "most POOL persistent connections — sockets "
+                           "O(pool) instead of O(worker threads); 0 "
+                           "(default) keeps the per-thread keep-alive "
+                           "transport")
+    conn.add_argument("--page-limit", type=int, default=0, metavar="N",
+                      help="paginated LISTs (fleet scale): chase "
+                           "?limit=N&continue= pages instead of one "
+                           "giant LIST body — the 410-resume re-sync "
+                           "stays bounded at 1000 nodes; 0 (default) = "
+                           "unpaginated")
 
     p = sub.add_parser("render", help="render artifacts from a cluster-spec")
     p.add_argument("--spec", default="", help="cluster-spec YAML path "
@@ -148,7 +650,161 @@ def build_parser() -> argparse.ArgumentParser:
                         "(repeatable; '*' wildcards namespace/name, e.g. "
                         "ServiceAccount/*/default)")
     p.set_defaults(fn=cmd_lint)
+
+    p = sub.add_parser(
+        "apply", help="ordered, readiness-gated rollout "
+                      "(helm install --wait analog)", parents=[conn])
+    p.add_argument("--operator", action="store_true",
+                   help="install the in-cluster operator instead of "
+                        "applying operands directly")
+    p.add_argument("--wait", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--stage-timeout", type=float, default=600)
+    p.add_argument("--poll", type=float, default=1.0)
+    p.add_argument("--parallel", action="store_true",
+                   help="pipelined rollout engine (REST backend only): "
+                        "shared-cache prefetch, concurrent apply within "
+                        "each dependency group, skip-unchanged re-applies")
+    p.add_argument("--max-inflight", type=int, default=None,
+                   help="worker-pool bound for --parallel "
+                        "(default 8, min 2)")
+    p.add_argument("--watch", action="store_true",
+                   help="event-driven readiness (REST backend only): one "
+                        "?watch=1 stream per collection instead of a "
+                        "LIST per poll tick; readiness fires on the "
+                        "event, degrading to the poll loop on 410/denied "
+                        "watches")
+    p.add_argument("--apply-mode", choices=kubeapply.APPLY_MODES,
+                   default="auto",
+                   help="apply mechanism (REST backend): auto (default) "
+                        "uses server-side apply — one apply PATCH per "
+                        "object under the 'tpuctl' field manager, "
+                        "force-owning the bundle's fields — and falls "
+                        "back to GET+merge-PATCH for good when the "
+                        "apiserver answers 415/400; ssa requires "
+                        "server-side apply; merge forces the legacy path. "
+                        "--resume refuses a journal recorded in a "
+                        "different explicit mode")
+    p.add_argument("--deadline", type=float, default=None, metavar="SECS",
+                   help="whole-rollout wall-clock budget: the remaining "
+                        "budget caps every per-attempt timeout, retry "
+                        "backoff, CRD/readiness wait and (on the kubectl "
+                        "backend) the subprocess kill timer, so a STALLED "
+                        "or TRICKLING apiserver cannot make the rollout "
+                        "outlive it; exhaustion fails with a typed "
+                        "DeadlineExceeded naming the slowest attempts")
+    p.add_argument("--hedge", type=float, default=None, metavar="SECS",
+                   help="hedge threshold for idempotent reads (REST "
+                        "backend): a GET/LIST attempt still unanswered "
+                        "after SECS fires ONE backup attempt on a fresh "
+                        "connection and the first response wins — "
+                        "tail-tolerant reads ('The Tail at Scale'); "
+                        "counted in tpuctl_hedges_total; mutations are "
+                        "never hedged")
+    p.add_argument("--allow-empty-daemonsets", action="store_true",
+                   help="treat DaemonSets with no matching nodes as ready")
+    p.add_argument("--journal", default="",
+                   help="record rollout progress (applied objects, "
+                        "converged groups) durably in PATH — the file "
+                        "--resume reads after a crash/SIGKILL")
+    p.add_argument("--resume", action="store_true",
+                   help="with --journal: skip groups the journal already "
+                        "marks converged (and re-send nothing already "
+                        "applied in the interrupted group); a journal from "
+                        "a different rendered bundle is discarded")
+    p.add_argument("--lint", choices=("off", "warn", "error"),
+                   default="warn",
+                   help="pre-apply static analysis of the rendered bundle "
+                        "(lint rules R01-R07): warn reports "
+                        "findings and proceeds (default); error blocks "
+                        "the rollout BEFORE the first apiserver request "
+                        "when any error-severity finding exists")
+    p.add_argument("--allow-external", action="append", default=[],
+                   metavar="KIND[/NS]/NAME",
+                   help="lint-gate allowlist entry for a reference that "
+                        "pre-exists on-cluster (same syntax as "
+                        "lint --allow-external; repeatable)")
+    p.add_argument("--trace-out", default="", metavar="PATH",
+                   help="write the rollout's span tree as Chrome "
+                        "trace-event JSON (load in chrome://tracing or "
+                        "ui.perfetto.dev): "
+                        "rollout -> group -> tier -> object -> HTTP "
+                        "attempt, retries/backoff as instant events. "
+                        "Written even when the rollout fails")
+    p.add_argument("--metrics-out", default="", metavar="PATH",
+                   help="dump the rollout's metrics registry as "
+                        "Prometheus text: per-verb/status request "
+                        "counters, latency and time-to-ready histograms, "
+                        "retry/skip/reconnect counters")
+    p.add_argument("--events", action="store_true",
+                   help="record operational Kubernetes Events next to "
+                        "the objects the rollout touches (REST backend): "
+                        "Retrying/RetryExhausted on the retry taxonomy, "
+                        "DeadlineExceeded, HedgeFired, WatchResumed — "
+                        "client-go-shaped aggregation + spam filter, "
+                        "fail-open (a failed Event write only bumps "
+                        "tpuctl_event_emit_failures_total); read them "
+                        "back with `events`")
+    p.add_argument("--flight-recorder", default="", metavar="PATH|off",
+                   help="always-on bounded post-mortem trace (REST "
+                        "backend): a ring of the last spans/retry events, "
+                        "atomically rewritten as the rollout runs, so a "
+                        "crashed/SIGKILL'd apply leaves a parseable dump "
+                        "even without --trace-out. Default: "
+                        "tpuctl-flight-<uid>.json in the system temp "
+                        "dir (per-user; concurrent applies share it — "
+                        "last writer wins); 'off' disables")
+    p.set_defaults(fn=cmd_apply)
+
+    p = sub.add_parser(
+        "delete", help="remove everything a spec renders, reverse order "
+                       "(helm uninstall analog)", parents=[conn])
+    p.add_argument("--operator", action="store_true",
+                   help="remove the operator install set (CRD, policy CR, "
+                        "bundle, controller) instead of the operands")
+    p.set_defaults(fn=cmd_delete)
+
+    p = sub.add_parser(
+        "events", help="list or stream (--follow) the Kubernetes Events "
+                       "the stack's controllers record, each row joined "
+                       "with the rollout trace that caused it",
+        parents=[conn])
+    p.add_argument("--namespace", default="",
+                   help="namespace to read Events from (default: the "
+                        "spec's GPU namespace plus 'default', where "
+                        "Events about cluster-scoped objects land)")
+    p.add_argument("--for", dest="for_", default="",
+                   metavar="[KIND/]NAME",
+                   help="only Events whose involvedObject matches "
+                        "(e.g. Job/gang-train, or a bare object name)")
+    p.add_argument("--follow", action="store_true",
+                   help="stream new/updated Events off a watch after "
+                        "printing the current set")
+    p.add_argument("--follow-seconds", type=float, default=0.0,
+                   help="with --follow: stop streaming after this many "
+                        "seconds (0 = until interrupted; the "
+                        "scripting/CI bound)")
+    p.add_argument("--json", action="store_true",
+                   help="one machine-readable JSON document instead of "
+                        "the table (list mode only)")
+    p.set_defaults(fn=cmd_events)
+
+    p = sub.add_parser("verify", help="run the acceptance runbook")
+    p.add_argument("--spec", default="")
+    p.add_argument("--config", default="all",
+                   help="all | comma-separated subset of: "
+                        f"{' | '.join(verify.CHECKS)}")
+    p.add_argument("--json", action="store_true",
+                   help="one machine-readable JSON line instead of "
+                        "PASS/FAIL lines")
+    p.set_defaults(fn=cmd_verify)
+
+    p = sub.add_parser("triage", help="run the troubleshooting runbook")
+    p.add_argument("--spec", default="")
+    p.set_defaults(fn=cmd_triage)
     return ap
+
+
 
 
 def main(argv=None) -> int:

@@ -6,9 +6,9 @@ Schema tools and per-object linters see one document at a time. This
 module checks the cross-object invariants they cannot: dangling
 intra-bundle references, selector integrity, and apply-order violations
 against the dependency tiers an apply executes (Namespace/CRD ->
-RBAC/config -> workloads inside a group, groups in order; the port keeps
-its own copy of that tier table, :data:`_TIER_FIRST` and
-:data:`WORKLOAD_KINDS`).
+RBAC/config -> workloads inside a group, groups in order). The linter and
+the apply engine share ``kubeapply._TIER_FIRST``/``WORKLOAD_KINDS``, so
+they cannot disagree about what "before" means.
 
 Input shape is ``Sequence[Sequence[dict]]``, the group-of-groups form
 (``manifests.rollout_groups``, ``operator_bundle.operator_install_groups``).
@@ -53,6 +53,7 @@ from dataclasses import dataclass
 from typing import (Any, Callable, Collection, Dict, FrozenSet, List,
                     Optional, Sequence, Set, Tuple)
 
+from .kubeapply import _KINDS, _TIER_FIRST, WORKLOAD_KINDS, ApplyError
 from .spec import ClusterSpec
 
 Manifest = Dict[str, Any]
@@ -103,33 +104,6 @@ DEFAULT_EXTERNAL: FrozenSet[str] = frozenset({
 
 GPU_RESOURCE_DEFAULT = "nvidia.com/gpu"
 
-# The apply tiers inside one group: Namespace/CRD, then RBAC/config, then
-# workloads (a copy of the reference apply engine's table).
-_TIER_FIRST = ("Namespace", "CustomResourceDefinition")
-WORKLOAD_KINDS = ("DaemonSet", "Deployment", "Job")
-
-# kind -> cluster-scoped, for the kinds the stack renders; any other
-# kind's scope comes from an in-bundle CRD or, failing that, from whether
-# the object names a namespace.
-_KIND_SCOPE: Dict[str, bool] = {
-    "Namespace": True,
-    "ConfigMap": False,
-    "Secret": False,
-    "Service": False,
-    "ServiceAccount": False,
-    "Pod": False,
-    "DaemonSet": False,
-    "Deployment": False,
-    "StatefulSet": False,
-    "Job": False,
-    "ClusterRole": True,
-    "ClusterRoleBinding": True,
-    "Node": True,
-    "Role": False,
-    "RoleBinding": False,
-    "CustomResourceDefinition": True,
-}
-
 # An object can acknowledge an intentional WARN-severity audit finding
 # with this annotation (comma-separated tokens: "hostPath", "privileged",
 # "hostNetwork", "probe-port"). The acknowledgement is scoped — each
@@ -176,13 +150,10 @@ class Finding:
                 "message": self.message, "hint": self.hint}
 
 
-class ApplyError(RuntimeError):
-    """A rollout that must not proceed."""
-
-
 class LintGateError(ApplyError):
-    """Raised by :func:`gate` in ``error`` mode BEFORE the rollout issues
-    its first request."""
+    """Raised by :func:`gate` in ``--lint=error`` mode BEFORE the rollout
+    issues its first request (an ApplyError so every apply caller's
+    existing error handling reports it)."""
 
 
 # --------------------------------------------------------------------------
@@ -190,9 +161,9 @@ class LintGateError(ApplyError):
 
 
 def _tier_index(obj: Manifest) -> int:
-    """The object's dependency tier inside its group (Namespace/CRD ->
-    RBAC/config -> workloads), the reference apply engine's
-    classification."""
+    """The object's dependency tier — the SAME classification
+    ``kubeapply._group_tiers`` applies inside a group (Namespace/CRD ->
+    RBAC/config -> workloads)."""
     kind = str(obj.get("kind", ""))
     if kind in _TIER_FIRST:
         return 0
@@ -248,13 +219,14 @@ class _Bundle:
 
     def is_cluster_scoped(self, obj: Manifest) -> bool:
         kind = str(obj.get("kind", ""))
-        if kind in _KIND_SCOPE:
-            return _KIND_SCOPE[kind]
+        if kind in _KINDS and kind != "TpuStackPolicy":
+            scoped: bool = _KINDS[kind][1]
+            return scoped
         group = str(obj.get("apiVersion", "")).split("/")[0]
         crd = self.crds.get((group, kind))
         if crd is not None:
             return crd[1] == "Cluster"
-        if kind == "TpuStackPolicy":  # the operator's policy CR
+        if kind == "TpuStackPolicy":  # CR known to kubeapply's table
             return True
         # unknown kind: namespace presence is the only signal left
         return "namespace" not in (obj.get("metadata") or {})

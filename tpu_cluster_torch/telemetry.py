@@ -1,16 +1,39 @@
-"""Metrics half of ``tpu_cluster/telemetry.py``: a Prometheus-text
-registry, dependency-free (stdlib only), the port's own copy.
+"""Unified telemetry: hierarchical spans + a Prometheus-text metrics
+registry, dependency-free (stdlib only). The port's own copy of
+``tpu_cluster/telemetry.py``: the metrics half, the tracer half and the
+flight recorder.
 
-:class:`MetricsRegistry` holds counter / gauge / histogram families keyed
-by name, each with labeled children created on demand. Histograms use
-FIXED buckets (cumulative ``le`` encoding, ``+Inf`` implicit) so two
-processes observing the same distribution render byte-comparable bucket
-lines. ``render()`` emits Prometheus text exposition format.
+Two halves, one facade (:class:`Telemetry`):
 
-The serving families keep their ``tpu_serving_*`` names: the autoscaler
-and the contract registry consume them. Tracing (spans, the flight
-recorder, trace export) is not ported yet; :class:`Telemetry` here is
-the metrics facade only.
+TRACING -- :class:`Tracer` builds a tree of :class:`Span` objects
+(rollout -> group -> tier -> object -> HTTP attempt). Parent linkage is a
+per-thread span stack, with an explicit ``parent=`` override at thread
+boundaries (the pipelined engine's worker pool, the per-collection watch
+threads). Spans carry ``args`` (annotations: status codes, apply actions)
+and instant *events* (retry/backoff/chaos marks). The whole tree exports
+as Chrome trace-event format (``chrome_trace()``): one ``ph: "X"``
+complete event per span, one ``ph: "i"`` instant event per span event,
+loadable in ``chrome://tracing`` / Perfetto.
+
+METRICS -- :class:`MetricsRegistry` holds counter / gauge / histogram
+families keyed by name, each with labeled children created on demand.
+Histograms use FIXED buckets (cumulative ``le`` encoding, ``+Inf``
+implicit) so two processes observing the same distribution render
+byte-comparable bucket lines. ``render()`` emits Prometheus text
+exposition format.
+
+TRACE CORRELATION -- every :class:`Tracer` owns a W3C trace id and every
+span a span id; ``kubeapply.Client`` sends a ``traceparent`` header per
+wire attempt (the attempt's leaf span is the parent context), and
+:class:`FlightRecorder` keeps a bounded always-on ring of the last
+spans/retry events, atomically flushed so a SIGKILL'd rollout still
+leaves a post-mortem trace even when ``--trace-out`` wasn't passed.
+
+Names read by other processes keep the reference's spelling: the
+``tpuctl_*`` client families, the ``tpu_serving_*`` families the
+autoscaler reads, :data:`OPERATOR_METRIC_NAMES` (the native operator's
+``/metrics`` contract) and :data:`TRACEPARENT_ANNOTATION`. The trace
+readers (summary, schema check, merge) are not part of this module yet.
 
 Every lock in this module is leaf-only: nothing is acquired while one
 is held.
@@ -18,9 +41,72 @@ is held.
 
 from __future__ import annotations
 
+import json
+import os
+import random
 import threading
-from typing import Any, Dict, List, Tuple
+import time
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
+# --------------------------------------------------------------------------
+# Pinned metric names.
+
+# Families the C++ operator's /metrics endpoint must emit
+# (kubeapi::OperatorMetricNames(), native/operator/kubeapi.cc; `verify
+# --config operator-metrics` fails a live scrape that lacks one).
+# Conditional families (e.g. the
+# --leader-elect-only tpu_operator_leader gauge) are deliberately NOT
+# here: the live-scrape check must hold on every configuration.
+OPERATOR_METRIC_NAMES: Tuple[str, ...] = (
+    "tpu_operator_objects",
+    "tpu_operator_passes_total",
+    "tpu_operator_healthy",
+    "tpu_operator_consecutive_failures",
+    "tpu_operator_policy_generation",
+    "tpu_operator_reconcile_duration_seconds",
+    "tpu_operator_watch_reconnects_total",
+    "tpu_operator_queue_depth",
+    "tpu_operator_sync_lag_seconds",
+    "tpu_operator_workqueue_adds_total",
+    "tpu_operator_workqueue_retries_total",
+    "tpu_operator_workqueue_depth",
+)
+
+# The Python client/rollout family names (one place so instrumentation
+# sites and assertions cannot drift on spelling).
+REQUESTS_TOTAL = "tpuctl_requests_total"
+REQUEST_SECONDS = "tpuctl_request_duration_seconds"
+RETRIES_TOTAL = "tpuctl_retries_total"
+HEDGES_TOTAL = "tpuctl_hedges_total"
+UNCHANGED_TOTAL = "tpuctl_apply_unchanged_total"
+READY_SECONDS = "tpuctl_ready_seconds"
+WATCH_RECONNECTS_TOTAL = "tpuctl_watch_reconnects_total"
+JOURNAL_SKIPS_TOTAL = "tpuctl_journal_skips_total"
+VERIFY_KUBECTL_CALLS = "tpuctl_verify_kubectl_calls_total"
+# Gang admission: the admission loop's control-plane families.
+ADMISSIONS_TOTAL = "tpuctl_admissions_total"
+PREEMPTIONS_TOTAL = "tpuctl_preemptions_total"
+GANG_WAIT_SECONDS = "tpuctl_gang_wait_seconds"
+# Fleet-scale control plane: paginated-LIST and informer
+# families. LIST_PAGES counts every page of a limit/continue chase (the
+# 1000-node re-sync audit); the informer families are the watch-cache's
+# vitals — events applied, full re-LISTs (initial sync / 410 resume;
+# an idle fleet holds this at its post-sync value, the zero-LIST pin),
+# and the lag from event receipt to cache-applied-and-notified.
+LIST_PAGES_TOTAL = "tpuctl_list_pages_total"
+INFORMER_EVENTS_TOTAL = "tpuctl_informer_events_total"
+INFORMER_RELISTS_TOTAL = "tpuctl_informer_relists_total"
+INFORMER_LAG_SECONDS = "tpuctl_informer_lag_seconds"
+# Kubernetes Events pipeline: the recorder's own vitals.
+# EMITTED counts every emit() that reached the wire (new Event POSTs and
+# aggregated count-bump PATCHes alike, labeled by reason); DROPPED
+# counts emits the token-bucket spam filter refused before any request;
+# EMIT_FAILURES is the fail-open contract's only failure surface — a
+# refused/failed Event write bumps it and NOTHING else happens (no
+# retry, no raised error, the hot path proceeds).
+EVENTS_EMITTED_TOTAL = "tpuctl_events_emitted_total"
+EVENTS_DROPPED_TOTAL = "tpuctl_events_dropped_total"
+EVENT_EMIT_FAILURES_TOTAL = "tpuctl_event_emit_failures_total"
 # Continuous-batching serving: the inference operand's families, per
 # replica on its MetricsServer scrape. QUEUE_DEPTH is the admission queue
 # the autoscaler watches; BATCH_SLOTS / BATCH_OCCUPANCY are the decode
@@ -38,12 +124,68 @@ SERVING_PHASE_SECONDS = "tpu_serving_phase_seconds"
 SERVING_REQUEST_SECONDS = "tpu_serving_request_seconds"
 SERVING_EVICTIONS_TOTAL = "tpu_serving_evictions_total"
 
-# Fixed default buckets, request-latency shaped (seconds).
+# Fixed default buckets, request-latency shaped (seconds). Shared with
+# the ready-wait histogram: its tail rides the +Inf bucket.
 DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0)
 
+# The annotation the CLI stamps on objects it MUTATES (never on a no-op
+# skip) when telemetry is armed, carrying the apply's traceparent so the
+# operator can attribute its reconcile slices to the rollout that caused
+# them. Twin of kubeapi::TraceparentAnnotation() (native/operator/
+# kubeapi.cc), pinned by selftest.cc + a source-grep in tests.
+TRACEPARENT_ANNOTATION = "tpu-stack.dev/traceparent"
+
 LabelPairs = Tuple[Tuple[str, str], ...]
+
+
+# --------------------------------------------------------------------------
+# W3C Trace Context (traceparent) helpers.
+#
+# The wire format is `00-<32 hex trace-id>-<16 hex parent-id>-<2 hex
+# flags>` (https://www.w3.org/TR/trace-context/). One Tracer = one trace
+# id; every wire attempt gets its own span id, sent as the parent-id so
+# the server's span nests under the exact attempt that caused it.
+
+def new_trace_id() -> str:
+    """128-bit random trace id, 32 lowercase hex chars (never all-zero —
+    the spec reserves it as invalid)."""
+    return f"{random.getrandbits(128) or 1:032x}"
+
+
+def new_span_id() -> str:
+    """64-bit random span id, 16 lowercase hex chars (never all-zero)."""
+    return f"{random.getrandbits(64) or 1:016x}"
+
+
+def format_traceparent(trace_id: str, span_id: str) -> str:
+    return f"00-{trace_id}-{span_id}-01"
+
+
+_HEX_DIGITS = frozenset("0123456789abcdefABCDEF")
+
+
+def _hex_field(value: str, width: int) -> bool:
+    """Exactly ``width`` hex digits, not all zero — a STRICT check
+    (int(x, 16) would tolerate '0x' prefixes, signs and whitespace,
+    which the pinned C++ twin kubeapi::ParseTraceparent rejects; the
+    three parsers must agree byte-for-byte on what correlates)."""
+    return (len(value) == width and set(value) <= _HEX_DIGITS
+            and set(value) != {"0"})
+
+
+def parse_traceparent(header: str) -> Optional[Tuple[str, str]]:
+    """``(trace_id, parent_id)`` from a traceparent header, or None for
+    anything malformed (a server must tolerate garbage headers)."""
+    parts = header.strip().split("-")
+    if len(parts) != 4:
+        return None
+    _version, trace_id, parent_id, _flags = parts
+    if not _hex_field(trace_id, 32) or not _hex_field(parent_id, 16):
+        return None
+    return trace_id, parent_id
+
 
 
 def _label_pairs(labels: Dict[str, str]) -> LabelPairs:
@@ -258,12 +400,419 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
-class Telemetry:
-    """The facade instrumented code holds: one metrics registry."""
+# --------------------------------------------------------------------------
+# Tracing.
 
+
+class Span:
+    """One timed node of the trace tree. Created via :meth:`Tracer.span`
+    (context-managed) or :meth:`Tracer.leaf` (already-completed wire
+    attempts); ``annotate`` adds args, ``event`` adds an instant mark
+    (retry/backoff/chaos annotations ride here)."""
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str,
+                 parent: Optional["Span"],
+                 args: Dict[str, Any],
+                 span_id: Optional[str] = None) -> None:
+        self.tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.parent = parent
+        # W3C span id: pre-generated by the transport for wire attempts
+        # (the traceparent header must carry it BEFORE the attempt
+        # completes), random otherwise
+        self.span_id = span_id or new_span_id()
+        # args/children/events mutate after publication (annotate() from
+        # the owning thread, child attachment from ANY thread via
+        # explicit parent=) — all three share the tracer's lock
+        self.args: Dict[str, Any] = dict(args)  # guarded-by: tracer.lock
+        self.start_s = time.monotonic() - tracer.t0
+        self.end_s: Optional[float] = None
+        self.tid = threading.get_ident()
+        self.children: List[Span] = []  # guarded-by: tracer.lock
+        # (name, offset_s, args) instant events within this span
+        # guarded-by: tracer.lock
+        self.events: List[Tuple[str, float, Dict[str, Any]]] = []
+
+    def annotate(self, key: str, value: Any) -> None:
+        with self.tracer.lock:
+            self.args[key] = value
+
+    def event(self, name: str, **args: Any) -> None:
+        offset = time.monotonic() - self.tracer.t0
+        with self.tracer.lock:
+            self.events.append((name, offset, dict(args)))
+        rec = self.tracer.recorder
+        if rec is not None:
+            # instant events (retry/backoff/chaos marks) are the flight
+            # recorder's most valuable cargo: flushed urgently so a
+            # SIGKILL right after a retry still leaves it on disk
+            rec.record({"ph": "i", "name": name, "cat": self.cat,
+                        "ts_s": round(offset, 6), "tid": self.tid,
+                        "args": dict(args)}, urgent=True)
+
+    def end(self) -> None:
+        if self.end_s is None:
+            self.end_s = time.monotonic() - self.tracer.t0
+            self._record_end()
+            self.tracer._discard_ended_root(self)
+
+    def _record_end(self) -> None:
+        """Feed the flight recorder one completed-span record (called
+        from end() and from Tracer.leaf, which sets end_s directly)."""
+        rec = self.tracer.recorder
+        if rec is None or self.end_s is None:
+            return
+        with self.tracer.lock:
+            args = dict(self.args)
+        rec.record({"ph": "X", "name": self.name, "cat": self.cat,
+                    "ts_s": round(self.start_s, 6),
+                    "dur_s": round(self.end_s - self.start_s, 6),
+                    "tid": self.tid, "span_id": self.span_id,
+                    "args": args})
+
+    @property
+    def duration_s(self) -> float:
+        end = (self.end_s if self.end_s is not None
+               else time.monotonic() - self.tracer.t0)
+        return max(0.0, end - self.start_s)
+
+
+class _SpanScope:
+    """Context manager: pushes the span on the calling thread's stack so
+    nested instrumentation (HTTP attempts inside an object apply) parents
+    correctly, pops + ends on exit."""
+
+    def __init__(self, tracer: "Tracer", span: Span) -> None:
+        self._tracer = tracer
+        self.span = span
+
+    def __enter__(self) -> Span:
+        self._tracer.push(self.span)
+        return self.span
+
+    def __exit__(self, *exc: object) -> None:
+        self._tracer.pop(self.span)
+        self.span.end()
+
+
+class _NullScope:
+    """The no-telemetry stand-in :func:`maybe_span` hands out."""
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc: object) -> None:
+        return None
+
+
+class Tracer:
     def __init__(self) -> None:
-        self.metrics = MetricsRegistry()
+        self.t0 = time.monotonic()
+        # epoch anchor so two traces (or a trace and a server log) can be
+        # aligned on wall-clock time
+        self.epoch = time.time()
+        # one trace id per tracer: every traceparent this process sends
+        # (and every annotation it stamps) carries it, which is what lets
+        # `tpuctl trace merge` correlate three processes' timelines
+        self.trace_id = new_trace_id()
+        # optional FlightRecorder fed on span end / instant events; set
+        # once before instrumentation starts (the Telemetry constructor),
+        # read by every recording thread
+        self.recorder: Optional["FlightRecorder"] = None
+        # span retention: True keeps every finished span for a later
+        # chrome_trace()/write_trace() export (one-shot rollouts); False
+        # drops a finished parentless span (and with it its whole
+        # subtree) — the mode for long-running controllers whose trace
+        # is never exported, where retaining every pass's tree would
+        # grow without bound. Set once before instrumentation starts
+        # (the Telemetry constructor), like `recorder`.
+        self.retain_spans = True
+        self.lock: Any = threading.Lock()
+        self.roots: List[Span] = []  # guarded-by: lock
+        self._tls = threading.local()  # thread-owned (per-thread stack)
 
+    # ---------------------------------------------------- span lifecycle
+
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = []
+            self._tls.stack = stack
+        return stack  # type: ignore[no-any-return]
+
+    def current(self) -> Optional[Span]:
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def push(self, span: Span) -> None:
+        self._stack().append(span)
+
+    def pop(self, span: Span) -> None:
+        stack = self._stack()
+        if stack and stack[-1] is span:
+            stack.pop()
+
+    def start(self, name: str, cat: str, parent: Optional[Span] = None,
+              span_id: Optional[str] = None, **args: Any) -> Span:
+        """Create (and attach) a span; caller must ``end()`` it. Parent
+        resolution: explicit ``parent`` wins (thread boundaries), else the
+        calling thread's innermost open span, else a new root."""
+        if parent is None:
+            parent = self.current()
+        span = Span(self, name, cat, parent, args, span_id=span_id)
+        if parent is not None:
+            # phrased receiver-locally (parent.tracer IS this tracer):
+            # child attachment happens under the lock guarding
+            # Span.children, whichever thread performs it
+            with parent.tracer.lock:
+                parent.children.append(span)
+        else:
+            with self.lock:
+                self.roots.append(span)
+        return span
+
+    def span(self, name: str, cat: str, parent: Optional[Span] = None,
+             **args: Any) -> _SpanScope:
+        return _SpanScope(self, self.start(name, cat, parent, **args))
+
+    def leaf(self, name: str, cat: str, duration_s: float,
+             parent: Optional[Span] = None,
+             span_id: Optional[str] = None, **args: Any) -> Span:
+        """Record an already-completed leaf span ending NOW (wire attempts
+        are timed by the transport and reported after the fact;
+        ``span_id`` is the id the transport already sent in the attempt's
+        traceparent header, so server-side spans can name it)."""
+        span = self.start(name, cat, parent, span_id=span_id, **args)
+        span.start_s = max(0.0, span.start_s - max(0.0, duration_s))
+        span.end_s = span.start_s + max(0.0, duration_s)
+        span._record_end()
+        self._discard_ended_root(span)
+        return span
+
+    def _discard_ended_root(self, span: Span) -> None:
+        """With retention off, a finished parentless span is dropped
+        from ``roots`` — the flight recorder (already fed on end) and
+        the metrics registry are the bounded surfaces that remain."""
+        if self.retain_spans or span.parent is not None:
+            return
+        with self.lock:
+            try:
+                self.roots.remove(span)
+            except ValueError:
+                pass
+
+    def event(self, name: str, **args: Any) -> None:
+        """Instant event on the calling thread's innermost open span
+        (dropped when no span is open — a bare Client call outside any
+        rollout)."""
+        cur = self.current()
+        if cur is not None:
+            cur.event(name, **args)
+
+    # ---------------------------------------------------------- export
+
+    def walk(self) -> Iterator[Span]:
+        with self.lock:
+            stack = list(self.roots)
+        while stack:
+            span = stack.pop()
+            yield span
+            with span.tracer.lock:
+                stack.extend(span.children)
+
+    def chrome_trace(self) -> Dict[str, Any]:
+        """Chrome trace-event format (the JSON object form):
+        ``{"traceEvents": [...], "displayTimeUnit": "ms"}``. One ``X``
+        (complete) event per span — ``ts``/``dur`` in MICROSECONDS, as the
+        format requires — and one ``i`` (instant) event per span event.
+        Unfinished spans export with their duration so far and
+        ``args.unfinished = true`` (a crashed rollout's trace is the most
+        interesting one)."""
+        events: List[Dict[str, Any]] = []
+        now = time.monotonic() - self.t0
+        for span in self.walk():
+            # copy the mutable span state under its lock: exporting a
+            # LIVE trace (the failure path writes mid-rollout) must not
+            # race annotate()/event() on still-running spans
+            with span.tracer.lock:
+                args = dict(span.args)
+                span_events = list(span.events)
+            end = span.end_s if span.end_s is not None else now
+            if span.end_s is None:
+                args["unfinished"] = True
+            # every span exports its W3C span id: the server-side spans'
+            # parent_id values resolve against these (the traceparent
+            # traceparent parity pin)
+            args["span_id"] = span.span_id
+            events.append({
+                "name": span.name, "cat": span.cat, "ph": "X",
+                "ts": round(span.start_s * 1e6, 1),
+                "dur": round(max(0.0, end - span.start_s) * 1e6, 1),
+                "pid": 1, "tid": span.tid, "args": args,
+            })
+            for ev_name, offset, ev_args in span_events:
+                events.append({
+                    "name": ev_name, "cat": span.cat, "ph": "i", "s": "t",
+                    "ts": round(offset * 1e6, 1),
+                    "pid": 1, "tid": span.tid, "args": dict(ev_args),
+                })
+        events.sort(key=lambda e: (e["ts"], e["ph"] != "X"))
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "otherData": {"producer": "tpuctl",
+                              "trace_id": self.trace_id,
+                              "epoch": self.epoch}}
+
+
+def _atomic_write(path: str, text: str) -> None:
+    """Write ``text`` to ``path`` via temp-file + rename, so a SIGKILL at
+    any instant leaves either the previous file or the complete new one —
+    never torn JSON (the journal's torn-tail discipline, applied to every
+    telemetry output). The scratch file comes from ``tempfile.mkstemp``
+    (O_CREAT|O_EXCL, random name, 0600): a predictable temp name in a
+    shared directory would be symlink-plantable (CWE-377), and the
+    flight recorder's default lives in exactly such a directory."""
+    import tempfile
+    directory = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(
+        prefix=f".{os.path.basename(path)}.", suffix=".tmp",
+        dir=directory)
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def write_json(path: str, doc: Dict[str, Any]) -> None:
+    """Atomically write one JSON document (compact, trailing newline) —
+    the public face of :func:`_atomic_write` for trace files."""
+    _atomic_write(path, json.dumps(doc, separators=(",", ":")) + "\n")
+
+
+class FlightRecorder:
+    """Bounded always-on post-mortem trace: a ring of the last
+    ``capacity`` span/instant-event records, rewritten ATOMICALLY to
+    ``path`` — urgently on every instant event (retries are the cargo a
+    post-mortem needs), else every ``flush_every`` records. Because the
+    on-disk file is replaced via rename, a SIGKILL at any instant leaves
+    a parseable dump (at worst ``flush_every`` spans stale); crash /
+    SIGTERM / chaos-failure paths flush explicitly. The dump is a Chrome
+    trace-event document (``otherData.flight_recorder: true``) so the
+    same tools — Perfetto, ``tpuctl top``, ``tpuctl trace merge`` — read
+    it."""
+
+    def __init__(self, path: str, trace_id: str = "",
+                 capacity: int = 256, flush_every: int = 16) -> None:
+        self.path = path
+        self.trace_id = trace_id
+        self.capacity = max(1, capacity)
+        self.flush_every = max(1, flush_every)
+        self.epoch = time.time()
+        self._lock: Any = threading.Lock()
+        self._ring: List[Dict[str, Any]] = []  # guarded-by: _lock
+        self._since_flush = 0  # guarded-by: _lock
+        self._dropped = 0  # guarded-by: _lock
+
+    def record(self, rec: Dict[str, Any], urgent: bool = False) -> None:
+        with self._lock:
+            self._ring.append(rec)
+            overflow = len(self._ring) - self.capacity
+            if overflow > 0:
+                del self._ring[:overflow]
+                self._dropped += overflow
+            self._since_flush += 1
+            flush = urgent or self._since_flush >= self.flush_every
+        if flush:
+            self.flush()
+
+    def document(self) -> Dict[str, Any]:
+        """The ring as a Chrome trace-event document (best-effort times:
+        ts/dur come from the recorded offsets)."""
+        with self._lock:
+            ring = list(self._ring)
+            dropped = self._dropped
+        events: List[Dict[str, Any]] = []
+        for rec in ring:
+            ev: Dict[str, Any] = {
+                "name": rec.get("name", "?"), "cat": rec.get("cat", "?"),
+                "ph": rec.get("ph", "X"),
+                "ts": round(float(rec.get("ts_s", 0.0)) * 1e6, 1),
+                "pid": 1, "tid": rec.get("tid", 0),
+                "args": dict(rec.get("args") or {}),
+            }
+            if ev["ph"] == "X":
+                ev["dur"] = round(float(rec.get("dur_s", 0.0)) * 1e6, 1)
+                if "span_id" in rec:
+                    ev["args"]["span_id"] = rec["span_id"]
+            else:
+                ev["s"] = "t"
+            events.append(ev)
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "otherData": {"producer": "tpuctl-flight-recorder",
+                              "flight_recorder": True,
+                              "trace_id": self.trace_id,
+                              "capacity": self.capacity,
+                              # same key as the C++ twin emitter's
+                              # otherData (kubeapi::TraceEmitter):
+                              # records evicted from the bounded ring
+                              "dropped_events": dropped,
+                              "epoch": self.epoch}}
+
+    def flush(self) -> None:
+        """Atomically rewrite the on-disk dump from the current ring.
+        Best-effort by design: an unwritable path must never fail the
+        rollout the recorder exists to debug."""
+        try:
+            _atomic_write(self.path,
+                          json.dumps(self.document(),
+                                     separators=(",", ":")) + "\n")
+        except OSError:
+            pass
+        with self._lock:
+            self._since_flush = 0
+
+
+class Telemetry:
+    """The facade instrumented code holds: one tracer + one registry
+    (+ optionally one flight recorder fed by the tracer)."""
+
+    def __init__(self, recorder: Optional[FlightRecorder] = None,
+                 retain_spans: bool = True) -> None:
+        self.tracer = Tracer()
+        self.tracer.retain_spans = retain_spans
+        self.metrics = MetricsRegistry()
+        self.recorder = recorder
+        if recorder is not None:
+            if not recorder.trace_id:
+                recorder.trace_id = self.tracer.trace_id
+            self.tracer.recorder = recorder
+
+    # tracing delegates
+    def span(self, name: str, cat: str, parent: Optional[Span] = None,
+             **args: Any) -> _SpanScope:
+        return self.tracer.span(name, cat, parent, **args)
+
+    def leaf(self, name: str, cat: str, duration_s: float,
+             parent: Optional[Span] = None,
+             span_id: Optional[str] = None, **args: Any) -> Span:
+        return self.tracer.leaf(name, cat, duration_s, parent,
+                                span_id=span_id, **args)
+
+    def current(self) -> Optional[Span]:
+        return self.tracer.current()
+
+    def event(self, name: str, **args: Any) -> None:
+        self.tracer.event(name, **args)
+
+    # metrics delegates
     def counter(self, name: str, help_text: str = "",
                 **labels: str) -> Counter:
         return self.metrics.counter(name, help_text, **labels)
@@ -276,3 +825,62 @@ class Telemetry:
                   **labels: str) -> Histogram:
         return self.metrics.histogram(name, help_text, buckets=buckets,
                                       **labels)
+
+    # export — both writes are ATOMIC (temp + rename): a SIGKILL mid-dump
+    # must leave the previous file or the complete new one, never torn
+    # JSON/exposition text (the journal's torn-tail discipline)
+    def chrome_trace(self) -> Dict[str, Any]:
+        return self.tracer.chrome_trace()
+
+    def write_trace(self, path: str) -> None:
+        _atomic_write(path, json.dumps(self.chrome_trace(),
+                                       separators=(",", ":")) + "\n")
+
+    def write_metrics(self, path: str) -> None:
+        _atomic_write(path, self.metrics.render())
+
+
+def maybe_span(tel: Optional[Telemetry], name: str, cat: str,
+               parent: Optional[Span] = None,
+               **args: Any) -> Union[_SpanScope, _NullScope]:
+    """Span scope when telemetry is enabled, a no-op scope otherwise —
+    instrumented call sites stay one-liners with zero overhead off."""
+    if tel is None:
+        return _NullScope()
+    return tel.span(name, cat, parent, **args)
+
+
+# --------------------------------------------------------------------------
+# Trace summarization (`tpuctl top`).
+
+# Rollout phase names in canonical order (the timings_line order); the
+# summary and the bench both filter phase spans to this set.
+PHASE_NAMES: Tuple[str, ...] = ("apply", "crd-establish", "ready-wait")
+
+
+def _complete_events(trace: Dict[str, Any]) -> List[Dict[str, Any]]:
+    if not isinstance(trace, dict):
+        raise ValueError("not a Chrome trace: top-level JSON is not an "
+                         "object")
+    events = trace.get("traceEvents")
+    if not isinstance(events, list):
+        raise ValueError("not a Chrome trace: no traceEvents array")
+    return [e for e in events
+            if isinstance(e, dict) and e.get("ph") == "X"]
+
+
+def phase_totals(trace: Dict[str, Any]) -> Dict[str, float]:
+    """Summed wall seconds per rollout phase (cat == "phase", canonical
+    names only) — what the bench derives its phases column from."""
+    out = {name: 0.0 for name in PHASE_NAMES}
+    for e in _complete_events(trace):
+        if e.get("cat") == "phase" and e.get("name") in out:
+            out[str(e["name"])] += float(e.get("dur", 0.0)) / 1e6
+    return out
+
+
+def request_events(trace: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every HTTP wire-attempt span (cat == "http") in the trace."""
+    return [e for e in _complete_events(trace) if e.get("cat") == "http"]
+
+

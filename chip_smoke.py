@@ -5,6 +5,8 @@ NVIDIA card. Run from the repository root: ``python3 chip_smoke.py``.
 It drives the port's main paths with the burn-in transformer at GPT-J
 block width (d4096, f16384, h16, vocab 8192), seq 8192, random weights
 from seed 0 — the serving engine answering HTTP requests with 4 slots,
+a second engine's replicas scaled by the fleet controllers on its duty
+gauge,
 ``burnin.run`` training at batch 1, the sharded step at mesh (1, 1), and
 ``burnin.timed_steps`` timing that training — then the validation Job's
 entry point, the sharded bench arms (``shardbench``), the flash crossover
@@ -39,6 +41,23 @@ Phases, each fatal when it fails:
    iterations; the metrics scrape must agree with the engine; one
    request's logits are recomputed with the plain attention path and
    compared with the kernel path;
+   fleet: the fleet controllers on the card's own Node (discovery's
+   labels, ``GpuReady``, the card count as capacity) in an in-process
+   fake apiserver (``tests/fake_apiserver.py``, loaded by path):
+   watch-driven admission over informers, a fresh serving engine behind
+   ``ServingServer`` scraped every 0.5 s, and the autoscaler (1 to 2
+   replicas, duty 50%/10% over the engine's own 5 s window, no
+   cooldown). Idle, ``serving-0``'s gang is admitted on card 0 and the
+   reservation table seats exactly ``[0]``; four closed-loop clients
+   (one a slot) for about 8 s must scale out on duty alone, the new
+   gang must queue ("waiting for 1 x 1-card host(s) ...") and no further
+   scale-out may follow, and K1 must launch once an engine iteration;
+   idle again, a scale-in must delete ``serving-1`` whole. Then a
+   maintenance wave over the Node (cordoned, drained with the Node in the
+   table's cordon list, upgraded, done; its five Events; ``serving-0``
+   drained and re-admitted; the target stack version on the Node), and
+   ``python -m tpu_cluster_torch queue --json`` with PyYAML blocked must
+   list ``serving/0`` admitted;
 6. training: ``burnin.run`` takes a few SGD steps on the flash path;
    the losses must be finite and decrease, and K1, K2 and K3 must each
    launch once a step; one step's per-parameter gradients on the flash
@@ -634,6 +653,18 @@ def _post(url: str, prompt, replies, i: int) -> None:
         replies[i] = (err.code, {})
 
 
+def serving_config():
+    """The served model: the burn-in transformer at GPT-J block width,
+    seq 8192, 4 slots, bf16 (the engine's parameter type)."""
+    from tpu_cluster_torch.workloads import burnin, serving
+
+    std = burnin.standard_config()
+    return serving.ServingConfig(
+        vocab=std.vocab, d_model=std.d_model, d_ff=std.d_ff,
+        n_heads=std.n_heads, seq=SERVING_SEQ, slots=SERVING_SLOTS,
+        max_new_tokens=NEW_TOKENS, default_deadline_s=600.0)
+
+
 def serving_phase(torch) -> dict:
     import numpy as np
     from dataclasses import replace
@@ -642,11 +673,7 @@ def serving_phase(torch) -> dict:
     from tpu_cluster_torch.kernels import flash_attention as fa
     from tpu_cluster_torch.workloads import burnin, serving
 
-    std = burnin.standard_config()
-    cfg = serving.ServingConfig(
-        vocab=std.vocab, d_model=std.d_model, d_ff=std.d_ff,
-        n_heads=std.n_heads, seq=SERVING_SEQ, slots=SERVING_SLOTS,
-        max_new_tokens=NEW_TOKENS, default_deadline_s=600.0)
+    cfg = serving_config()
     engine = serving.InferenceEngine(cfg, telemetry=telemetry.Telemetry())
     mcfg = engine.model_config()
     check(mcfg.attention == "flash",
@@ -734,6 +761,319 @@ def serving_phase(torch) -> dict:
     check(all(agree), "served tokens disagree with the teacher-forced argmax")
     return {"launches": launches, "params": params, "decode": decode,
             "engine": engine}
+
+
+# the fleet phase's autoscaling law: the engine's own duty window
+# (serving.py's DutyCycleSampler) and a scale-out that one card cannot
+# seat, so the second replica's gang must queue
+FLEET_POLICY = dict(min_replicas=1, max_replicas=2, duty_high=50.0,
+                    duty_low=10.0, window_s=5.0, cooldown_s=0.0)
+FLEET_LOAD_S = 8.0
+FLEET_PROMPT = 256
+FLEET_PASS_S = 0.5
+FLEET_TARGET_VERSION = "gpu-stack-2"
+
+
+def _until(what: str, cond, timeout: float, step=None):
+    """Run ``step`` (when given) and re-test ``cond`` until it holds;
+    fails the run after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        if step is not None:
+            step()
+        value = cond()
+        if value:
+            return value
+        check(time.monotonic() < deadline,
+              f"fleet: {what} did not happen within {timeout:.0f} s")
+        time.sleep(0.05)
+
+
+def _load(url: str, prompt, stop: threading.Event, done: list) -> None:
+    """One closed-loop client: a request, its reply, the next."""
+    while not stop.is_set():
+        replies = [None]
+        _post(url, prompt, replies, 0)
+        done.append(replies[0][0] if replies[0] else None)
+
+
+def fleet_phase(torch) -> dict:
+    """The fleet controllers on the card's own Node and its serving
+    engine's duty gauge: admission (watch-driven) seats the autoscaler's
+    replica gangs, the autoscaler scales out on the card's duty under
+    load and back in when idle, a maintenance wave drains and re-admits
+    the card's gang, and the queue CLI reads it without PyYAML."""
+    import numpy as np
+
+    from tpu_cluster_torch import (admission, autoscale, events, kubeapply,
+                                   maintenance, metricsdb, telemetry)
+    from tpu_cluster_torch.discovery import labeler, labels
+    from tpu_cluster_torch.kernels import flash_attention as fa
+    from tpu_cluster_torch.spec import default_spec
+    from tpu_cluster_torch.workloads import runtime_metrics, serving
+
+    t_phase = time.perf_counter()
+    found, host = card_host(torch)
+    spec = default_spec()
+    ns, resource = spec.gpu.namespace, spec.gpu.resource_name
+    fake = _load_fake_apiserver()
+    node = card_node(labels.compute_labels(host.name, found, "chip-smoke"),
+                     labeler.gpu_ready_condition(host.name, len(found)),
+                     resource, len(found))
+    jobs_path = f"/apis/batch/v1/namespaces/{ns}/jobs"
+    table_path = (f"/api/v1/namespaces/{ns}/configmaps/"
+                  f"{admission.RESERVATION_CONFIGMAP}")
+
+    engine = serving.InferenceEngine(serving_config(),
+                                     telemetry=telemetry.Telemetry())
+    t0 = time.perf_counter()
+    engine._ensure_model()
+    torch.cuda.synchronize()
+    print(f"fleet: a fresh engine for the replica, model built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    server = serving.ServingServer(engine)
+
+    tel = telemetry.Telemetry(retain_spans=False)
+    stop = threading.Event()
+    with fake.FakeApiServer(auto_ready=True) as api:
+        client = kubeapply.Client(api.url, telemetry=tel)
+        client.apply(node)
+        host_view = admission.host_capacity(api.get("/api/v1/nodes/"
+                                                    "chip-smoke"))
+        print(f"fleet: Node chip-smoke: {host_view.accelerator}, "
+              f"{host_view.cards} card(s), ready {host_view.ready}")
+        check(host_view.accelerator == host.name
+              and host_view.cards == len(found) and host_view.ready,
+              f"the card's Node reads as {host_view}")
+        adm = admission.AdmissionController(
+            client, ns, telemetry=tel,
+            events=events.EventRecorder(client, component="gpu-admission",
+                                        telemetry=tel))
+        # one-second watch windows: stopping an informer waits for its
+        # window to end
+        informers = adm.build_informers(window_s=1).start()
+        check(informers.wait_synced(30), "admission informers never synced")
+        loop = threading.Thread(target=adm.run_watch, name="admission",
+                                kwargs={"resync": FLEET_PASS_S,
+                                        "stop": stop})
+        loop.start()
+        tsdb = metricsdb.TSDB()
+        scraper = None
+        try:
+            # count this phase's run only
+            for fn in (fa.flash_attention, fa.flash_attention_bwd_dkv,
+                       fa.flash_attention_bwd_dq):
+                fn.launches = 0
+            server.start()
+            scraper = metricsdb.ScrapeManager(
+                [metricsdb.Target("serving-0", server.metrics_url)], tsdb,
+                interval_s=FLEET_PASS_S, telemetry=tel).start()
+            ctrl = autoscale.AutoscaleController(
+                client, ns, job="serving", accelerator=host.name,
+                policy=autoscale.AutoscalePolicy(**FLEET_POLICY),
+                tsdb=tsdb, telemetry=tel,
+                events=events.EventRecorder(client,
+                                            component="gpu-autoscale",
+                                            telemetry=tel))
+            passes = []
+
+            def one_pass():
+                passes.append(ctrl.step())
+                time.sleep(FLEET_PASS_S)
+                return passes[-1]
+
+            # 1. idle: serving-0 converges and admission seats its gang
+            one_pass()
+            seat = _until("the admission of serving/0",
+                          lambda: adm.admitted_snapshot().get("serving/0"),
+                          30, one_pass)
+            table = admission.parse_table(json.loads(
+                api.get(table_path)["data"][admission.RESERVATION_KEY]))
+            alone = admission.check_allocation(table, "chip-smoke", [0])
+            twice = admission.check_allocation(table, "chip-smoke", [0, 0])
+            print(f"fleet: idle: {passes[-1].line()}; gang serving/0 "
+                  f"admitted on {seat.hosts}; check_allocation [0] "
+                  f"{alone}, [0, 0] {twice}")
+            check(seat.hosts == (("chip-smoke", (0,)),),
+                  f"serving/0 reserved {seat.hosts}")
+            check(alone == (True, "serving/0"), f"[0]: {alone}")
+            check(not twice[0] and "duplicate" in twice[1], f"[0, 0]: {twice}")
+
+            # 2. load: as many closed-loop clients as the engine has slots
+            rng = np.random.default_rng(SEED)
+            prompt = rng.integers(0, engine.cfg.vocab, FLEET_PROMPT).tolist()
+            done, load_stop = [], threading.Event()
+            clients = [threading.Thread(target=_load,
+                                        args=(server.url, prompt, load_stop,
+                                              done))
+                       for _ in range(engine.cfg.slots)]
+            it0 = engine.iterations
+            t_load = time.monotonic()
+            for th in clients:
+                th.start()
+            up = None
+            queues = []
+            while time.monotonic() - t_load < FLEET_LOAD_S or up is None:
+                check(time.monotonic() - t_load < 60,
+                      "fleet: no scale-out within 60 s of load")
+                res = one_pass()
+                queues.append(res.view.queue_depth)
+                if res.verdict == autoscale.VERDICT_UP:
+                    check(up is None, f"a second scale-out: {res.line()}")
+                    up, up_after = res, time.monotonic() - t_load
+                elif up is not None:
+                    check(res.verdict in (autoscale.VERDICT_BLOCKED,
+                                          autoscale.VERDICT_HOLD),
+                          f"after the scale-out: {res.line()}")
+            load_stop.set()
+            for th in clients:
+                th.join(timeout=120)
+            load_s = time.monotonic() - t_load
+            launches_load = fa.flash_attention.launches
+            iterations_load = engine.iterations - it0
+            duty = up.view.duty_percent
+            print(f"fleet: load: {up.line()}; duty read at the decision "
+                  f"{duty:.1f}%, reaction_s {up.reaction_s} (overload seen "
+                  f"-> decided), {up_after:.2f} s after the load began; "
+                  f"queue depths seen "
+                  f"{sorted(set(q for q in queues if q is not None))}")
+            check(up.reason.startswith("duty"),
+                  f"the scale-out's reason {up.reason!r}")
+            check(up.applied == ["serving-1"], f"applied {up.applied}")
+            series = tsdb.latest(runtime_metrics.DUTY_CYCLE_PERCENT,
+                                 job="serving-0")
+            check(len(series) == 1, f"duty series in the TSDB: {series}")
+            queued = _until(
+                "the arbitration of serving/1",
+                lambda: adm.decisions_snapshot().get("serving/1"), 30)
+            print(f"fleet: gang serving/1: {queued.status} ({queued.reason})")
+            check(queued.status == admission.STATUS_QUEUED
+                  and queued.reason.startswith(
+                      f"waiting for 1 x {host.cards_per_host}-card host(s) "
+                      f"for {host.name}"),
+                  f"serving/1's decision {queued}")
+            codes = sorted(set(done))
+            print(f"fleet: {len(done)} request(s) in {load_s:.1f} s by "
+                  f"{len(clients)} closed-loop client(s), HTTP {codes}; "
+                  f"K1 launches {launches_load}, engine iterations "
+                  f"{iterations_load}")
+            check(codes == [200], f"HTTP codes {codes}")
+            check(iterations_load > 0 and launches_load == iterations_load,
+                  f"K1 launches {launches_load} vs iterations "
+                  f"{iterations_load} under load")
+
+            # 3. idle again: the window drains, serving-1 goes whole
+            down = _until(
+                "the scale-in",
+                lambda: passes[-1].verdict == autoscale.VERDICT_DOWN
+                and passes[-1], 60, one_pass)
+            print(f"fleet: idle again: {down.line()}")
+            check(down.deleted == ["serving-1"], f"deleted {down.deleted}")
+            _until("serving/1's release",
+                   lambda: "serving/1" not in adm.decisions_snapshot(), 30)
+            jobs = sorted(client.list_collection(jobs_path))
+            check(jobs == ["serving-0"], f"Jobs after the scale-in: {jobs}")
+            check("serving/0" in adm.admitted_snapshot(),
+                  "serving/0 lost its seat in the scale-in")
+            verdicts = [p.verdict for p in passes]
+            print(f"fleet: autoscale: {len(passes)} pass(es) {verdicts}")
+            check(verdicts.count(autoscale.VERDICT_UP) == 1
+                  and verdicts.count(autoscale.VERDICT_DOWN) == 1,
+                  f"verdicts {verdicts}")
+        finally:
+            if scraper is not None:
+                scraper.stop()
+            server.stop()
+        launches = fa.flash_attention.launches
+        backward = (fa.flash_attention_bwd_dkv.launches,
+                    fa.flash_attention_bwd_dq.launches)
+        print(f"fleet: K1 launches {launches} over the engine's "
+              f"{engine.iterations} iterations; K2, K3 {backward}")
+        check(launches == engine.iterations,
+              f"K1 launches {launches} vs engine iterations "
+              f"{engine.iterations} in the phase")
+        check(backward == (0, 0), f"K2, K3 launched {backward} serving")
+
+        # 4. a maintenance wave over the card's Node
+        plan = maintenance.plan_from_cluster(client, FLEET_TARGET_VERSION)
+        check([(g.name, g.hosts) for g in plan.groups]
+              == [("g/0", ("chip-smoke",))], f"the wave plan {plan}")
+        mctrl = maintenance.MaintenanceController(
+            client, ns, plan=plan, telemetry=tel,
+            events=events.EventRecorder(client, component="gpu-maintenance",
+                                        telemetry=tel))
+        phases, cordoned = [], []
+
+        def wave_pass():
+            res = mctrl.step()
+            phases.extend(p for _g, p in res.transitions)
+            if phases and phases[-1] == maintenance.PHASE_DRAINED \
+                    and not cordoned:
+                doc = api.get(table_path)["data"][admission.RESERVATION_KEY]
+                cordoned.append(admission.parse_table(json.loads(doc))
+                                .cordoned)
+            time.sleep(0.1)
+            return res
+
+        _until("the wave", lambda: wave_pass().complete, 60)
+        readmitted = _until("serving/0's re-admission",
+                            lambda: adm.admitted_snapshot().get("serving/0"),
+                            30)
+        version = api.get("/api/v1/nodes/chip-smoke")["metadata"]["labels"] \
+            .get(maintenance.VERSION_LABEL)
+        stored = [api.get(p) for p in sorted(api.paths("/events/"))]
+        wave = [e["reason"] for e in stored
+                if e["involvedObject"]["name"]
+                == maintenance.MAINTENANCE_CONFIGMAP]
+        gang = [e["reason"] for e in stored
+                if e["involvedObject"]["name"] == "serving-0"]
+        print(f"fleet: maintenance: phases {phases}, cordoned in the table "
+              f"while drained {cordoned}, wave events {wave}, serving-0's "
+              f"events {gang}, stack-version {version}")
+        check(phases == [maintenance.PHASE_CORDONED, maintenance.PHASE_DRAINED,
+                         maintenance.PHASE_UPGRADED, maintenance.PHASE_DONE],
+              f"phases {phases}")
+        check(cordoned == [("chip-smoke",)], f"cordoned {cordoned}")
+        check(sorted(wave) == sorted([
+            maintenance.EVENT_CORDON_STARTED, maintenance.EVENT_GANG_DRAINED,
+            maintenance.EVENT_UPGRADE_APPLIED, maintenance.EVENT_UNCORDONED,
+            maintenance.EVENT_WAVE_COMPLETE]), f"wave events {wave}")
+        check(gang == sorted(gang, key=[admission.EVENT_ADMITTED,
+                                        admission.EVENT_DRAINED,
+                                        admission.EVENT_READMITTED].index)
+              and admission.EVENT_DRAINED in gang
+              and admission.EVENT_READMITTED in gang,
+              f"serving-0's events {gang}")
+        check(readmitted.hosts == (("chip-smoke", (0,)),),
+              f"serving/0 re-admitted on {readmitted.hosts}")
+        check(version == FLEET_TARGET_VERSION, f"stack-version {version}")
+
+        # 5. the queue CLI with PyYAML made unimportable
+        no_yaml = ("import runpy, sys; sys.modules['yaml'] = None; "
+                   "runpy.run_module('tpu_cluster_torch', "
+                   "run_name='__main__', alter_sys=True)")
+        proc = subprocess.run(
+            [sys.executable, "-c", no_yaml, "queue", "--apiserver", api.url,
+             "--json"], capture_output=True, text=True, timeout=120,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(proc.returncode == 0, f"queue --json exited "
+                                    f"{proc.returncode}: {proc.stderr}")
+        gangs = {g["name"]: g["status"]
+                 for g in json.loads(proc.stdout)["gangs"]}
+        print(f"fleet: python -m tpu_cluster_torch queue --apiserver URL "
+              f"--json with PyYAML blocked: rc 0, gangs {gangs}")
+        check(gangs == {"serving/0": admission.STATUS_ADMITTED},
+              f"queue lists {gangs}")
+        stop.set()
+        loop.join(timeout=30)
+        informers.stop()
+        client.close()
+    check(not loop.is_alive(), "the admission loop did not stop")
+    wall = time.perf_counter() - t_phase
+    print(f"fleet: phase wall {wall:.1f} s")
+    return {"launches": launches, "wall_s": wall, "duty": duty,
+            "reaction_s": up.reaction_s, "up_after_s": up_after,
+            "passes": len(passes), "requests": len(done)}
 
 
 def training_phase(torch) -> dict:
@@ -1091,24 +1431,18 @@ def host_phase(torch) -> None:
     card and must exit 0 with ``ok``."""
     import tempfile
 
-    from tpu_cluster_torch import lint, topology
+    from tpu_cluster_torch import lint
     from tpu_cluster_torch.discovery import devices, labels
     from tpu_cluster_torch.render import (jobs, manifests, nodeprep,
                                           operator_bundle)
     from tpu_cluster_torch.spec import default_spec
 
-    found = devices.discover()
-    count = torch.cuda.device_count()
+    found, host = card_host(torch)
+    count = len(found)
+    name = torch.cuda.get_device_name(0)
     print(f"host: discovered {len(found)} card(s) {[d.path for d in found]}"
           f" (card nodes whose minor NVML reports; NVML minors "
           f"{devices.nvml_minors()}); torch sees {count} card(s)")
-    check(len(found) == count,
-          f"discovered {len(found)} card(s), torch sees {count}")
-    name = torch.cuda.get_device_name(0)
-    card = topology.from_device_name(name)
-    host = next((h for h in topology.HOST_TYPES.values()
-                 if h.card is card and h.cards_per_host == count), None)
-    check(host is not None, f"no host layout of {count} {name!r}")
     got = labels.compute_labels(host.name, found, "chip-smoke")
     print(f"host: labels of {host.name}: {json.dumps(got, sort_keys=True)}")
     check(got[labels.PRESENT] == "true"
@@ -1205,6 +1539,38 @@ def host_phase(torch) -> None:
             runs[job] = proc
     apply_step(spec, bundles)
     verify_step(spec, record, len(found), runs)
+
+
+def card_host(torch):
+    """(the machine's cards as discovery finds them, the host layout of
+    that many of this card): the count must be the one torch sees."""
+    from tpu_cluster_torch import topology
+    from tpu_cluster_torch.discovery import devices
+
+    found = devices.discover()
+    count = torch.cuda.device_count()
+    check(len(found) == count,
+          f"discovered {len(found)} card(s), torch sees {count}")
+    name = torch.cuda.get_device_name(0)
+    card = topology.from_device_name(name)
+    host = next((h for h in topology.HOST_TYPES.values()
+                 if h.card is card and h.cards_per_host == count), None)
+    check(host is not None, f"no host layout of {count} {name!r}")
+    return found, host
+
+
+def card_node(labels: dict, condition: dict, resource: str,
+              cards: int) -> dict:
+    """The card's Node as feature discovery and the kubelet publish it:
+    discovery's labels, Ready and ``condition`` (GpuReady), and the
+    cards as capacity and allocatable."""
+    return {"apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": "chip-smoke", "labels": dict(labels)},
+            "status": {
+                "conditions": [{"type": "Ready", "status": "True"},
+                               condition],
+                "capacity": {resource: str(cards)},
+                "allocatable": {resource: str(cards)}}}
 
 
 def _load_fake_apiserver():
@@ -1361,13 +1727,8 @@ def verify_step(spec, record: dict, cards: int, runs: dict) -> None:
     ns = spec.gpu.namespace
 
     def runner_for(condition: dict):
-        node = {"apiVersion": "v1", "kind": "Node",
-                "metadata": {"name": "chip-smoke",
-                             "labels": dict(record["labels"])},
-                "status": {
-                    "conditions": [{"type": "Ready", "status": "True"},
-                                   condition],
-                    "allocatable": {spec.gpu.resource_name: str(cards)}}}
+        node = card_node(record["labels"], condition,
+                         spec.gpu.resource_name, cards)
         nodes = json.dumps({"kind": "List", "items": [node]})
         answers = {
             ("kubectl", "get", "nodes", "-o", "json"): nodes,
@@ -1486,6 +1847,7 @@ def main() -> int:
     backward = backward_phase(torch, acc)
     head_phase(torch)
     served = serving_phase(torch)
+    fleet = fleet_phase(torch)
     trained = training_phase(torch)
     sharded = sharded_phase(torch, trained)
     timed = timed_phase(torch, acc, trained)
@@ -1506,7 +1868,8 @@ def main() -> int:
                           "training_shape": backward[128]["k1_training"]}
     k2, k3 = (dict(backward[256][n], head_dim_128=backward[128][n])
               for n in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"))
-    k1["launches_by_path"] = {"serving": serving_launches}
+    k1["launches_by_path"] = {"serving": serving_launches,
+                              "autoscale": fleet["launches"]}
     for i, record in enumerate((k1, k2, k3)):
         by_path = record.setdefault("launches_by_path", {})
         by_path["training"] = training_launches[i]

@@ -15,6 +15,7 @@ from tpu_cluster import spec as ref_specmod
 from tpu_cluster.render import jobs as ref_jobs
 from tpu_cluster.render import manifests as ref_manifests
 from tpu_cluster.workloads import multihost as ref_multihost
+from tpu_cluster_torch import admission
 from tpu_cluster_torch import spec as specmod
 from tpu_cluster_torch.render import jobs
 from tpu_cluster_torch.workloads import multihost
@@ -55,7 +56,16 @@ def test_jobs_equal_reference_after_substitutions(ref_acc, acc, hosts):
     ref, port = _specs(ref_acc, acc)
     want = ref_jobs.render_validation_jobs(ref, multihost_hosts=hosts)
     got = jobs.render_validation_jobs(port, multihost_hosts=hosts)
-    assert json.loads(json.dumps(got, sort_keys=True)) == _substituted(want)
+    # the reference gang-annotates only its multi-host slices; every
+    # multi-host Job of the port spans whole hosts and opts into gang
+    # admission with its layout (the reference's annotation keys)
+    want = _substituted(want)
+    for obj in want:
+        name = obj["metadata"]["name"]
+        if obj["kind"] == "Job" and name.endswith("-multihost"):
+            obj["metadata"]["annotations"].update(
+                admission.gang_annotations(name, acc))
+    assert json.loads(json.dumps(got, sort_keys=True)) == want
     assert len(got) == (4 if hosts < 2 else 8)
 
 

@@ -1,7 +1,8 @@
 """The port's CLI (``python -m tpu_cluster_torch``): the render, lint,
-apply, delete, events, verify and triage commands of the reference's
-``tpuctl`` (``tpu_cluster/__main__.py``), with its flags, defaults,
-messages and exit codes.
+apply, delete, events, verify, triage, queue, admission, maintain and
+autoscale commands of the reference's ``tpuctl``
+(``tpu_cluster/__main__.py``), with its flags, defaults, messages and
+exit codes.
 
   render   cluster spec -> node-prep / kubeadm scripts, operand manifests,
            validation Jobs, operator install, operator bundle
@@ -21,6 +22,11 @@ messages and exit codes.
            caused it via the tpu-stack.dev/traceparent annotation
   verify   the executable acceptance runbook
   triage   the executable troubleshooting runbook
+  queue    the gang-admission queue (admitted, queued, preempted gangs
+           with reasons and reserved hosts)
+  admission  the gang-admission control loop (--once, --watch)
+  maintain   rolling maintenance waves: plan | run | status
+  autoscale  the metrics-driven serving autoscaler: run | status
 
     python -m tpu_cluster_torch render --out DIR [--spec FILE] [--multihost N]
     python -m tpu_cluster_torch lint [--strict] [--operator] [--format json]
@@ -29,6 +35,10 @@ messages and exit codes.
     python -m tpu_cluster_torch events --apiserver URL [--for OBJ] [--follow]
     python -m tpu_cluster_torch verify [--config all|CHECKS] [--json]
     python -m tpu_cluster_torch triage
+    python -m tpu_cluster_torch queue --apiserver URL [GANG] [--json]
+    python -m tpu_cluster_torch admission --apiserver URL [--once|--watch]
+    python -m tpu_cluster_torch maintain plan|run|status --apiserver URL
+    python -m tpu_cluster_torch autoscale run|status --apiserver URL
 
 The REST backend (``--apiserver``) needs no PyYAML; the kubectl backend
 and ``render`` import it.
@@ -43,9 +53,13 @@ import sys
 import time
 from typing import Dict
 
+from . import admission as admissionmod
+from . import autoscale as autoscalemod
 from . import events as eventsmod
 from . import kubeapply
 from . import lint as lintmod
+from . import maintenance as maintenancemod
+from . import metricsdb as metricsdbmod
 from . import spec as specmod
 from . import telemetry, triage, verify
 from .render import jobs, kubeadm, manifests, nodeprep, operator_bundle
@@ -402,6 +416,331 @@ def cmd_lint(args) -> int:
         print(lintmod.format_table(findings),
               file=sys.stderr if failing else sys.stdout)
     return 1 if failing else 0
+
+
+def cmd_queue(args) -> int:
+    """The gang queue, read-side: gang-annotated Jobs joined with the
+    published reservation ConfigMap. `queue GANG` prints one gang's
+    detail block (reserved hosts + card indices)."""
+    if not args.apiserver:
+        print("queue: --apiserver URL required (the gang queue lives on "
+              "the cluster)", file=sys.stderr)
+        return 2
+    spec = _load_spec(args.spec)
+    ns = args.namespace or spec.gpu.namespace
+    client = _rest_client(args)
+    assert client is not None
+    try:
+        views = admissionmod.fetch_queue(client, ns)
+        cordoned = admissionmod.fetch_cordoned(client)
+    finally:
+        client.close()
+    if args.gang:
+        found = [v for v in views if v.name == args.gang]
+        if args.json:
+            import dataclasses
+            print(json.dumps({"namespace": ns, "gangs": [
+                dataclasses.asdict(v) for v in found]}))
+        else:
+            print(admissionmod.describe_gang(views, args.gang))
+        return 0 if found else 1
+    if args.json:
+        import dataclasses
+        print(json.dumps({"namespace": ns,
+                          "gangs": [dataclasses.asdict(v) for v in views],
+                          "cordoned": [{"host": h, "group": g}
+                                       for h, g in cordoned]}))
+        return 0
+    print(admissionmod.format_queue(views))
+    # cordon state rides the queue listing: a queued gang's
+    # "waiting on cordoned host group" reason should be resolvable from
+    # the same screen
+    block = admissionmod.format_cordoned(cordoned)
+    if block:
+        print(block)
+    return 0
+
+
+def cmd_admission(args) -> int:
+    """Run the gang-admission control loop (one pass with --once, else
+    poll at --interval until interrupted). Writes the reservation
+    ConfigMap and per-Job decision annotations as it goes."""
+    if not args.apiserver:
+        print("admission: --apiserver URL required (the admission loop "
+              "is a REST controller)", file=sys.stderr)
+        return 2
+    spec = _load_spec(args.spec)
+    ns = args.namespace or spec.gpu.namespace
+    # events need a Telemetry even when no trace/metrics file was
+    # asked for: the recorder stamps each decision Event with the
+    # run's trace id, which is what `events` joins on. Span
+    # retention follows --trace-out: without it nothing ever exports
+    # the span tree, and the forever-running loop must not grow one
+    # admission-pass tree per pass until it OOMs (the metrics registry
+    # and the traceparent stamp — the parts events/--metrics-out
+    # consume — are bounded and unaffected)
+    tel = (telemetry.Telemetry(retain_spans=bool(args.trace_out))
+           if (args.trace_out or args.metrics_out or args.events
+               or args.metrics_port)
+           else None)
+    client = _rest_client(args)
+    assert client is not None
+    client.telemetry = tel
+    # --metrics-port: serve the loop's LIVE registry so the admission/
+    # informer controller becomes a first-class scrape target.
+    # Fail-open on bind conflict by contract: two loops racing
+    # for one port must not take the arbitration down — warn, continue
+    # unscraped.
+    metrics_server = None
+    if args.metrics_port:
+        assert tel is not None
+        try:
+            # OverflowError: an out-of-range port fails the BIND like a
+            # conflict does, and must get the same fail-open treatment
+            metrics_server = metricsdbmod.MetricsServer(
+                tel.metrics, args.metrics_port).start()
+            print(f"admission: serving /metrics on "
+                  f"{metrics_server.url}")
+        except (OSError, OverflowError) as exc:
+            print(f"admission: cannot bind metrics port "
+                  f"{args.metrics_port} ({exc}); continuing without "
+                  "a metrics endpoint", file=sys.stderr)
+    # decision Events are ON by default for the admission CLI (the
+    # controller's decisions are exactly what `events --for`
+    # exists to show); --no-events restores the annotation-only loop
+    recorder = (eventsmod.EventRecorder(client, component="gpu-admission",
+                                        telemetry=tel)
+                if args.events else None)
+    ctrl = admissionmod.AdmissionController(client, ns, telemetry=tel,
+                                            events=recorder)
+    rc = 0
+    try:
+        if args.once:
+            print(ctrl.step().line())
+        elif args.watch:
+            print(f"admission: watch-driven arbitration in namespace "
+                  f"{ns} (informers over nodes + jobs; resync backstop "
+                  f"{args.interval:g}s; ctrl-c to stop)")
+
+            def _report(result) -> None:
+                if (result.newly_admitted or result.preempted
+                        or result.drained):
+                    print(result.line())
+
+            ctrl.run_watch(resync=args.interval, on_pass=_report)
+        else:
+            print(f"admission: arbitrating gangs in namespace {ns} every "
+                  f"{args.interval:g}s (ctrl-c to stop)")
+            while True:
+                try:
+                    result = ctrl.step()
+                except kubeapply.ApplyError as exc:
+                    # a long-running controller must outlive apiserver
+                    # outages: the loop is the outer retry (same
+                    # discipline as AdmissionController.run) — report
+                    # and keep arbitrating
+                    print(f"admission: pass failed ({exc}); retrying",
+                          file=sys.stderr)
+                else:
+                    if (result.newly_admitted or result.preempted
+                            or result.drained):
+                        print(result.line())
+                time.sleep(args.interval)
+    except KeyboardInterrupt:
+        print("admission: stopped")
+    except kubeapply.ApplyError as exc:
+        # --once: one failed pass IS the result
+        print(f"admission: {exc}", file=sys.stderr)
+        rc = 1
+    finally:
+        client.close()
+        if metrics_server is not None:
+            metrics_server.stop()
+        if tel is not None and args.trace_out:
+            try:
+                tel.write_trace(args.trace_out)
+            except OSError as exc:
+                print(f"admission: cannot write trace: {exc}",
+                      file=sys.stderr)
+        if tel is not None and args.metrics_out:
+            try:
+                tel.write_metrics(args.metrics_out)
+            except OSError as exc:
+                print(f"admission: cannot write metrics: {exc}",
+                      file=sys.stderr)
+    return rc
+
+
+def cmd_maintain(args) -> int:
+    """Rolling maintenance orchestration (cordon/drain/upgrade waves):
+    `plan` renders the wave groups a live fleet would get, `status`
+    reads the published wave state, `run` drives the crash-restartable
+    controller (--once for a single CI/scripting pass)."""
+    if not args.apiserver:
+        print("maintain: --apiserver URL required (maintenance acts on "
+              "the cluster)", file=sys.stderr)
+        return 2
+    spec = _load_spec(args.spec)
+    ns = args.namespace or spec.gpu.namespace
+    client = _rest_client(args)
+    assert client is not None
+    rc = 0
+    try:
+        if args.maintain_cmd == "plan":
+            plan = maintenancemod.plan_from_cluster(
+                client, args.target, group_size=args.group_size,
+                budget=maintenancemod.GangDisruptionBudget(
+                    max_drained_gangs=args.budget,
+                    min_available_groups=args.min_available))
+            print(maintenancemod.format_plan(plan))
+        elif args.maintain_cmd == "status":
+            state = maintenancemod.fetch_state(client, ns)
+            print(maintenancemod.format_status(state))
+            if state is None:
+                rc = 1  # the not-found contract, queue-style
+        else:  # run
+            plan = None
+            if args.target:
+                plan = maintenancemod.plan_from_cluster(
+                    client, args.target, group_size=args.group_size,
+                    budget=maintenancemod.GangDisruptionBudget(
+                        max_drained_gangs=args.budget,
+                        min_available_groups=args.min_available))
+            # the recorder needs a Telemetry for the traceparent stamp
+            # (same reasoning as cmd_admission); spans stay unretained —
+            # the forever loop must not grow a pass tree per pass
+            tel = telemetry.Telemetry(retain_spans=False)
+            client.telemetry = tel
+            recorder = (eventsmod.EventRecorder(
+                client, component="gpu-maintenance", telemetry=tel)
+                if args.events else None)
+            ctrl = maintenancemod.MaintenanceController(
+                client, ns, plan=plan, telemetry=tel, events=recorder)
+            if args.once:
+                print(ctrl.step().line())
+            else:
+                print(f"maintain: driving wave in namespace {ns} every "
+                      f"{args.interval:g}s until complete (ctrl-c to "
+                      "stop)")
+                last = ""
+                while True:
+                    try:
+                        result = ctrl.step()
+                    except kubeapply.ApplyError as exc:
+                        # phases persist and desired node state is
+                        # recomputed each pass — the loop is the outer
+                        # retry, nothing is lost
+                        print(f"maintain: pass failed ({exc}); retrying",
+                              file=sys.stderr)
+                    else:
+                        if (result.transitions or result.wave_completed
+                                or result.blocked_on):
+                            line = result.line()
+                            if line != last:  # a held budget repeats
+                                print(line)
+                            last = line
+                        if result.complete:
+                            print("maintain: wave complete")
+                            break
+                    time.sleep(args.interval)
+    except KeyboardInterrupt:
+        print("maintain: stopped")
+    except kubeapply.ApplyError as exc:
+        print(f"maintain: {exc}", file=sys.stderr)
+        rc = 1
+    finally:
+        client.close()
+    return rc
+
+
+def cmd_autoscale(args) -> int:
+    """Metrics-driven serving autoscaler (HPA analog for gang-scheduled
+    replicas): `run` scrapes the replica targets and converges the
+    gang-annotated serving Jobs toward the windowed-load decision
+    (--once for a single crash-restartable CI/scripting pass), `status`
+    reads the published autoscale state."""
+    if not args.apiserver:
+        print("autoscale: --apiserver URL required (the autoscaler "
+              "acts on the cluster)", file=sys.stderr)
+        return 2
+    spec = _load_spec(args.spec)
+    ns = args.namespace or spec.gpu.namespace
+    client = _rest_client(args)
+    assert client is not None
+    rc = 0
+    try:
+        if args.autoscale_cmd == "status":
+            state = autoscalemod.fetch_state(client, ns)
+            print(autoscalemod.format_status(state))
+            if state is None:
+                rc = 1  # the not-found contract, queue-style
+        else:  # run
+            try:
+                targets = _parse_targets(args.targets)
+                policy = autoscalemod.AutoscalePolicy(
+                    min_replicas=args.min_replicas,
+                    max_replicas=args.max_replicas,
+                    duty_high=args.duty_high, duty_low=args.duty_low,
+                    queue_high=args.queue_high, window_s=args.window,
+                    cooldown_s=args.cooldown)
+                policy.validate()
+            except ValueError as exc:
+                print(f"autoscale: {exc}", file=sys.stderr)
+                return 2
+            # the recorder needs a Telemetry for the traceparent stamp;
+            # spans stay unretained (same reasoning as cmd_maintain)
+            tel = telemetry.Telemetry(retain_spans=False)
+            client.telemetry = tel
+            recorder = (eventsmod.EventRecorder(
+                client, component="gpu-autoscale", telemetry=tel)
+                if args.events else None)
+            ctrl = autoscalemod.AutoscaleController(
+                client, ns, job=args.job, accelerator=args.accelerator,
+                policy=policy, targets=targets, telemetry=tel,
+                events=recorder)
+            if args.once:
+                # a fresh process has an empty TSDB: take the warm-up
+                # scrapes the decision window needs, then one pass
+                # (step() itself scrapes once more)
+                for _ in range(max(0, args.scrape_passes - 1)):
+                    if ctrl.scrape is not None:
+                        ctrl.scrape.scrape_once()
+                    time.sleep(args.scrape_interval)
+                print(ctrl.step().line())
+            else:
+                print(f"autoscale: driving {args.job} in namespace "
+                      f"{ns} every {args.interval:g}s (ctrl-c to stop)")
+                last = ""
+                while True:
+                    try:
+                        result = ctrl.step()
+                    except kubeapply.ApplyError as exc:
+                        # state persists and Job convergence is
+                        # level-triggered — the loop is the outer retry
+                        print(f"autoscale: pass failed ({exc}); "
+                              "retrying", file=sys.stderr)
+                    else:
+                        line = result.line()
+                        if (result.verdict != autoscalemod.VERDICT_HOLD
+                                or result.applied or result.deleted
+                                or line != last):
+                            print(line)
+                        last = line
+                    time.sleep(args.interval)
+    except KeyboardInterrupt:
+        print("autoscale: stopped")
+    except kubeapply.ApplyError as exc:
+        print(f"autoscale: {exc}", file=sys.stderr)
+        rc = 1
+    finally:
+        client.close()
+    return rc
+
+
+def _parse_targets(specs):
+    """--targets JOB=URL list -> [metricsdb.Target] (ValueError names
+    the offending spec)."""
+    return [metricsdbmod.parse_target(spec) for spec in specs]
 
 
 def _print_event_rows(client, rows, as_json: bool) -> None:
@@ -763,6 +1102,194 @@ def build_parser() -> argparse.ArgumentParser:
                    help="remove the operator install set (CRD, policy CR, "
                         "bundle, controller) instead of the operands")
     p.set_defaults(fn=cmd_delete)
+
+    p = sub.add_parser(
+        "queue", help="list/describe the gang-admission queue "
+                      "(admitted, queued, preempted gangs with reasons "
+                      "and reserved hosts)", parents=[conn])
+    p.add_argument("gang", nargs="?", default="",
+                   help="describe one gang (reserved hosts + card "
+                        "indices) instead of listing all")
+    p.add_argument("--namespace", default="",
+                   help="namespace of the gang Jobs + reservation "
+                        "ConfigMap (default: the spec's GPU namespace)")
+    p.add_argument("--json", action="store_true",
+                   help="one machine-readable JSON document instead of "
+                        "the table")
+    p.set_defaults(fn=cmd_queue)
+
+    p = sub.add_parser(
+        "admission", help="run the gang-admission control loop: "
+                          "all-or-nothing arbitration of multi-host "
+                          "GPU workloads with priority preemption and "
+                          "drain/re-admission on host failure",
+        parents=[conn])
+    p.add_argument("--namespace", default="",
+                   help="namespace to arbitrate (gang Jobs + reservation "
+                        "ConfigMap; default: the spec's GPU namespace)")
+    p.add_argument("--once", action="store_true",
+                   help="one admission pass, print the summary, exit "
+                        "(CI/scripting mode)")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="seconds between admission passes (default 1)")
+    p.add_argument("--watch", action="store_true",
+                   help="event-driven mode (fleet scale): hold one "
+                        "LIST+watch informer per collection (nodes + "
+                        "jobs) and re-arbitrate on EVENTS instead of "
+                        "LISTing the world every pass — an idle pass "
+                        "issues zero apiserver reads after the initial "
+                        "sync; --interval becomes the resync backstop")
+    p.add_argument("--events", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="post one correlated Event per decision "
+                        "transition (Admitted/Preempted/Drained/"
+                        "ReAdmitted) on the gang's Job — on by default; "
+                        "--no-events restores the annotation-only loop")
+    p.add_argument("--trace-out", default="", metavar="PATH",
+                   help="write the admission spans as Chrome trace-event "
+                        "JSON")
+    p.add_argument("--metrics-out", default="", metavar="PATH",
+                   help="dump the admission metrics registry "
+                        "(tpuctl_admissions_total, "
+                        "tpuctl_preemptions_total, "
+                        "tpuctl_gang_wait_seconds) as Prometheus text")
+    p.add_argument("--metrics-port", type=int, default=0, metavar="N",
+                   help="serve the loop's LIVE metrics registry over "
+                        "HTTP on 127.0.0.1:N (/metrics, exposition "
+                        "text) so the controller is a first-class "
+                        "scrape target; fail-open on bind conflict (warn, "
+                        "continue); 0 (default) = off")
+    p.set_defaults(fn=cmd_admission)
+
+    p = sub.add_parser(
+        "maintain", help="rolling maintenance orchestration: cordon/"
+                         "drain/upgrade the fleet in wave groups under "
+                         "a gang disruption budget, crash-restartable "
+                         "(wave state persists in a ConfigMap)")
+    msub = p.add_subparsers(dest="maintain_cmd", required=True)
+
+    def _maintain_common(mp, with_plan: bool) -> None:
+        mp.add_argument("--namespace", default="",
+                        help="namespace of the wave-state/reservation "
+                             "ConfigMaps and gang Jobs (default: the "
+                             "spec's GPU namespace)")
+        if with_plan:
+            mp.add_argument("--group-size", type=int, default=1,
+                            help="hosts per wave group (groups never "
+                                 "mix host layouts; default 1)")
+            mp.add_argument("--budget", type=int, default=1,
+                            help="max concurrently-drained gangs per "
+                                 "host layout (default 1)")
+            mp.add_argument("--min-available", type=int, default=0,
+                            help="floor of host groups left fully "
+                                 "schedulable per host layout "
+                                 "(default 0)")
+        mp.set_defaults(fn=cmd_maintain)
+
+    mp = msub.add_parser(
+        "plan", help="render the wave groups the live fleet would get "
+                     "(no writes)", parents=[conn])
+    mp.add_argument("--target", required=True,
+                    help="stack version the wave upgrades to")
+    _maintain_common(mp, with_plan=True)
+
+    mp = msub.add_parser(
+        "status", help="read the published wave state (exit 1 when no "
+                       "wave was ever run)", parents=[conn])
+    _maintain_common(mp, with_plan=False)
+
+    mp = msub.add_parser(
+        "run", help="drive the wave: cordon -> drain -> upgrade -> "
+                    "health-gated uncordon per group, budget-gated; "
+                    "resumes the published state when --target is "
+                    "omitted", parents=[conn])
+    mp.add_argument("--target", default="",
+                    help="stack version to upgrade to (starts a fresh "
+                         "plan; omit to resume the published wave)")
+    mp.add_argument("--once", action="store_true",
+                    help="one maintenance pass, print the summary, exit "
+                         "(CI/scripting + crash-restart mode)")
+    mp.add_argument("--interval", type=float, default=1.0,
+                    help="seconds between passes (default 1)")
+    mp.add_argument("--events", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="post one Event per wave transition "
+                         "(CordonStarted/GangDrained/UpgradeApplied/"
+                         "Uncordoned/WaveComplete) on the state "
+                         "ConfigMap — on by default")
+    _maintain_common(mp, with_plan=True)
+
+    p = sub.add_parser(
+        "autoscale", help="metrics-driven serving autoscaler: scrape "
+                          "replica /metrics, window duty-cycle + queue "
+                          "depth, and scale the gang-annotated serving "
+                          "Jobs through admission (scale-out = new "
+                          "gang, scale-in = drain-whole), "
+                          "crash-restartable (state persists in a "
+                          "ConfigMap)")
+    asub = p.add_subparsers(dest="autoscale_cmd", required=True)
+
+    asp = asub.add_parser(
+        "status", help="read the published autoscale state (exit 1 "
+                       "when the autoscaler never ran)", parents=[conn])
+    asp.add_argument("--namespace", default="",
+                    help="namespace of the autoscale-state ConfigMap "
+                         "(default: the spec's GPU namespace)")
+    asp.set_defaults(fn=cmd_autoscale)
+
+    asp = asub.add_parser(
+        "run", help="drive the metrics->replicas loop: scrape, decide "
+                    "(hysteresis + cooldown, fail-open on scrape "
+                    "blindness), converge the replica Jobs",
+        parents=[conn])
+    asp.add_argument("--namespace", default="",
+                    help="namespace of the serving Jobs and the "
+                         "autoscale-state ConfigMap (default: the "
+                         "spec's GPU namespace)")
+    asp.add_argument("--job", default="serving",
+                    help="base name of the serving deployment; replica "
+                         "Jobs are <job>-0..<job>-N (default: serving)")
+    asp.add_argument("--accelerator", default="h100-sxm5-80gb-8",
+                    help="host layout each replica gang requests, one "
+                         "host a replica (default: h100-sxm5-80gb-8)")
+    asp.add_argument("--targets", action="append", default=[],
+                    metavar="JOB=URL",
+                    help="replica metrics endpoint (repeatable): a "
+                         "ServingServer's --metrics-port exposition "
+                         "URL")
+    asp.add_argument("--min-replicas", type=int, default=1)
+    asp.add_argument("--max-replicas", type=int, default=4)
+    asp.add_argument("--duty-high", type=float, default=75.0,
+                    help="windowed tpu_duty_cycle_percent above which "
+                         "the fleet scales out (default 75)")
+    asp.add_argument("--duty-low", type=float, default=25.0,
+                    help="windowed duty below which (with an idle "
+                         "queue) the fleet scales in (default 25)")
+    asp.add_argument("--queue-high", type=float, default=4.0,
+                    help="queued requests per replica that also trigger "
+                         "scale-out (default 4)")
+    asp.add_argument("--window", type=float, default=30.0,
+                    help="metric window seconds (default 30)")
+    asp.add_argument("--cooldown", type=float, default=60.0,
+                    help="wall-clock lockout after every scale "
+                         "(default 60; persists across restarts)")
+    asp.add_argument("--once", action="store_true",
+                    help="warm-up scrapes + one pass, print the "
+                         "summary, exit (CI/scripting + crash-restart "
+                         "mode)")
+    asp.add_argument("--scrape-passes", type=int, default=2,
+                    help="scrapes before the --once decision "
+                         "(default 2)")
+    asp.add_argument("--scrape-interval", type=float, default=0.05,
+                    help="seconds between --once warm-up scrapes "
+                         "(default 0.05)")
+    asp.add_argument("--interval", type=float, default=1.0,
+                    help="seconds between passes (default 1)")
+    asp.add_argument("--events", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="post ScaledUp/ScaledDown/ScaleBlocked Events "
+                         "on the state ConfigMap — on by default")
+    asp.set_defaults(fn=cmd_autoscale)
 
     p = sub.add_parser(
         "events", help="list or stream (--follow) the Kubernetes Events "

@@ -12,7 +12,8 @@ arguments (on a card, validate's device is the card):
   gpu-psum-multihost  N hosts     the same across hosts: an Indexed Job and
   gpu-burnin-multihost            a headless Service give each pod a stable
                                   DNS name and the TPU_WORKER_* env that
-                                  ``workloads/multihost.plan`` reads
+                                  ``workloads/multihost.plan`` reads; the
+                                  Job carries admission's gang annotations
 
     python -m tpu_cluster_torch.render.jobs --accelerator h100-sxm5-80gb-1 [--multihost-hosts N]
 
@@ -26,6 +27,7 @@ import json
 import sys
 from typing import Any, Dict, List
 
+from .. import admission
 from ..discovery.labels import PRESENT
 from ..lint import LINT_ALLOW_ANNOTATION
 from ..spec import GpuSpec, SpecError
@@ -135,6 +137,11 @@ def multihost_psum_job(spec: GpuSpec, num_hosts: int = 2,
         "completions": num_hosts,
         "parallelism": num_hosts,
     })
+    # a multi-host Job is a gang: it opts into gang admission, which
+    # reserves all num_hosts hosts of the layout at once or queues the
+    # Job whole
+    job["metadata"].setdefault("annotations", {}).update(
+        admission.gang_annotations(name, spec.host_type.name))
     tmpl = job["spec"]["template"]
     tmpl["spec"]["subdomain"] = svc_name
     container = tmpl["spec"]["containers"][0]

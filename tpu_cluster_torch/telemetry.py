@@ -107,6 +107,25 @@ INFORMER_LAG_SECONDS = "tpuctl_informer_lag_seconds"
 EVENTS_EMITTED_TOTAL = "tpuctl_events_emitted_total"
 EVENTS_DROPPED_TOTAL = "tpuctl_events_dropped_total"
 EVENT_EMIT_FAILURES_TOTAL = "tpuctl_event_emit_failures_total"
+# Continuous metrics: the scrape pipeline's self-metrics. UP is the
+# Prometheus liveness convention -- 1 for a target whose scrape parsed,
+# 0 for a dead or garbled one -- synthesized per target by
+# metricsdb.ScrapeManager next to its own duration and ingested-sample
+# vitals.
+UP = "up"
+SCRAPE_DURATION_SECONDS = "tpuctl_scrape_duration_seconds"
+SCRAPE_SAMPLES_TOTAL = "tpuctl_scrape_samples_total"
+# Rolling maintenance: the MaintenanceController's families.
+# TRANSITIONS counts every wave-group phase transition (labeled by the
+# phase entered: cordoned/drained/upgraded/done); WAVES counts completed
+# wave plans; DRAINING_GANGS and CORDONED_HOSTS are the live disruption
+# gauges the budget bounds; GROUP_SECONDS is the cordon->done wall per
+# host group.
+MAINTENANCE_TRANSITIONS_TOTAL = "tpu_maintenance_transitions_total"
+MAINTENANCE_WAVES_TOTAL = "tpu_maintenance_waves_total"
+MAINTENANCE_DRAINING_GANGS = "tpu_maintenance_draining_gangs"
+MAINTENANCE_CORDONED_HOSTS = "tpu_maintenance_cordoned_hosts"
+MAINTENANCE_GROUP_SECONDS = "tpu_maintenance_group_seconds"
 # Continuous-batching serving: the inference operand's families, per
 # replica on its MetricsServer scrape. QUEUE_DEPTH is the admission queue
 # the autoscaler watches; BATCH_SLOTS / BATCH_OCCUPANCY are the decode
@@ -123,6 +142,14 @@ SERVING_REQUESTS_TOTAL = "tpu_serving_requests_total"
 SERVING_PHASE_SECONDS = "tpu_serving_phase_seconds"
 SERVING_REQUEST_SECONDS = "tpu_serving_request_seconds"
 SERVING_EVICTIONS_TOTAL = "tpu_serving_evictions_total"
+# Metrics-driven autoscaling: the HPA-analog controller's families.
+# REPLICAS is the desired replica count it converges the serving Jobs
+# to; DECISIONS counts every pass's verdict (labeled up|down|hold|
+# blocked); REACTION_SECONDS is the overload-observed to scale-decision
+# wall.
+AUTOSCALE_REPLICAS = "tpu_autoscale_replicas"
+AUTOSCALE_DECISIONS_TOTAL = "tpu_autoscale_decisions_total"
+AUTOSCALE_REACTION_SECONDS = "tpu_autoscale_reaction_seconds"
 
 # Fixed default buckets, request-latency shaped (seconds). Shared with
 # the ready-wait histogram: its tail rides the +Inf bucket.
@@ -199,6 +226,36 @@ def escape_label(value: str) -> str:
             .replace("\n", "\\n"))
 
 
+def unescape_label(value: str) -> str:
+    """Inverse of :func:`escape_label`: one left-to-right pass decoding
+    ``\\\\``, ``\\"`` and ``\\n`` (an unknown escape keeps its backslash
+    verbatim, the Prometheus parser's tolerance rule). Sequential on
+    purpose — chained str.replace would mis-decode ``\\\\n`` (an escaped
+    backslash followed by a literal n) into a newline."""
+    out: List[str] = []
+    i = 0
+    n = len(value)
+    while i < n:
+        c = value[i]
+        if c == "\\" and i + 1 < n:
+            nxt = value[i + 1]
+            if nxt == "\\":
+                out.append("\\")
+                i += 2
+                continue
+            if nxt == '"':
+                out.append('"')
+                i += 2
+                continue
+            if nxt == "n":
+                out.append("\n")
+                i += 2
+                continue
+        out.append(c)
+        i += 1
+    return "".join(out)
+
+
 
 def _fmt(value: float) -> str:
     """Render a sample value: integers without a trailing .0, other
@@ -206,6 +263,14 @@ def _fmt(value: float) -> str:
     if value == int(value) and abs(value) < 1e15:
         return str(int(value))
     return repr(round(value, 9))
+
+
+def fmt_value(value: float) -> str:
+    """Public face of :func:`_fmt` — the scrape-side parity surface:
+    :meth:`MetricsRegistry.samples` spells histogram ``le`` labels with
+    it, and the metricsdb parser's round-trip check compares against
+    those exact strings."""
+    return _fmt(value)
 
 
 class Counter:
@@ -398,6 +463,38 @@ class MetricsRegistry:
                     suffix = f"{{{label_text}}}" if label_text else ""
                     lines.append(f"{name}{suffix} {_fmt(child.value)}")
         return "\n".join(lines) + "\n"
+
+    def samples(self) -> Dict[Tuple[str, LabelPairs], float]:
+        """Every sample line :meth:`render` emits, as a flat ``{(name,
+        sorted label pairs): value}`` mapping — histograms expand to
+        their cumulative ``_bucket`` rows (``le`` spelled via
+        :func:`fmt_value`, ``+Inf`` included), ``_sum`` and ``_count``,
+        exactly as rendered. This is the render/parse symmetry surface:
+        ``metricsdb.parse_text(reg.render()).samples == reg.samples()``."""
+        out: Dict[Tuple[str, LabelPairs], float] = {}
+        with self._lock:
+            families = sorted(self._families.items())
+        for name, fam in families:
+            with self._lock:
+                series = sorted(fam.series.items())
+            for key, child in series:
+                if isinstance(child, Histogram):
+                    cum, h_sum = child.snapshot()
+                    for bound, c in zip(child.buckets, cum):
+                        le_key = tuple(sorted(
+                            key + (("le", fmt_value(bound)),)))
+                        out[(f"{name}_bucket", le_key)] = float(c)
+                    inf_key = tuple(sorted(key + (("le", "+Inf"),)))
+                    out[(f"{name}_bucket", inf_key)] = float(cum[-1])
+                    # values pass through the SAME _fmt spelling render
+                    # prints (repr(round(v, 9)) for fractions): a raw
+                    # 0.1+0.2 sum would compare 0.30000000000000004
+                    # against the parsed 0.3
+                    out[(f"{name}_sum", key)] = float(fmt_value(h_sum))
+                    out[(f"{name}_count", key)] = float(cum[-1])
+                else:
+                    out[(name, key)] = float(fmt_value(child.value))
+        return out
 
 
 # --------------------------------------------------------------------------

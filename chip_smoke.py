@@ -10,9 +10,10 @@ gauge,
 ``burnin.run`` training at batch 1, the sharded step at mesh (1, 1), and
 ``burnin.timed_steps`` timing that training — then the validation Job's
 entry point, the sharded bench arms (``shardbench``), the flash crossover
-sweep at both head widths, and the host side (discovery, labels, the
-rendered validation Jobs), and holds every kernel on those paths against
-its plain PyTorch version on the card.
+sweep at both head widths, the host side (discovery, labels, the
+rendered validation Jobs, the apply path and its traces), the SLOs over
+the card's traces and the contract tools, and holds every kernel on
+those paths against its plain PyTorch version on the card.
 Phases, each fatal when it fails:
 
 1. device: name, and name and power limit as nvidia-smi reports them;
@@ -52,12 +53,21 @@ Phases, each fatal when it fails:
    (one a slot) for about 8 s must scale out on duty alone, the new
    gang must queue ("waiting for 1 x 1-card host(s) ...") and no further
    scale-out may follow, and K1 must launch once an engine iteration;
-   idle again, a scale-in must delete ``serving-1`` whole. Then a
-   maintenance wave over the Node (cordoned, drained with the Node in the
+   idle again, a scale-in must delete ``serving-1`` whole. The scraper
+   also reads the controllers' own registry (a second target,
+   ``tpuctl``, served by ``MetricsServer``): under load, once a scrape
+   after the scale-out has landed, ``metricsdb.render_dash`` over 5 s
+   must show both targets up, a request rate and a p99 on the
+   ``tpuctl`` row, and decoded tok/s above 0 with ``replicas 2`` (the
+   engine's own decoded count over the window is printed beside it);
+   after the scale-in, ``replicas 1``; ``dash --replay`` of the TSDB's
+   dump (PyYAML blocked) must equal the in-process frame byte for byte,
+   and ``live_slo_report`` over the TSDB must be ok with
+   ``apply-availability`` samples. Then a maintenance wave over the Node (cordoned, drained with the Node in the
    table's cordon list, upgraded, done; its five Events; ``serving-0``
    drained and re-admitted; the target stack version on the Node), and
    ``python -m tpu_cluster_torch queue --json`` with PyYAML blocked must
-   list ``serving/0`` admitted;
+   list ``serving/0`` admitted; the phase's spans are kept as its trace;
 6. training: ``burnin.run`` takes a few SGD steps on the flash path;
    the losses must be finite and decrease, and K1, K2 and K3 must each
    launch once a step; one step's per-parameter gradients on the flash
@@ -118,12 +128,23 @@ Phases, each fatal when it fails:
    ``ready-wait`` phases, and no request may have been retried;
    ``delete_groups`` must leave none of the objects. ``python -m
    tpu_cluster_torch apply --apiserver URL --wait``, with PyYAML made
-   unimportable, must exit 0 with ``apply: converged`` and a trace. And
+   unimportable, must exit 0 with ``apply: converged`` and a trace;
+   ``trace merge`` of that trace and the fake's ``/__fake_trace`` must
+   carry the CLI's trace id, ``trace validate`` of the merge and ``top``
+   of the CLI's trace must exit 0, ``top`` listing the phases ``apply``,
+   ``crd-establish`` and ``ready-wait``. And
    ``verify``: the labels, conditions, allocatable, device-query and
    vector-add checks must pass on a runner that answers ``kubectl`` from
    this phase's own output (feature discovery's record, the two Jobs'
    exit codes and logs), and ``conditions`` must fail when that record's
-   ``GpuReady`` is False.
+   ``GpuReady`` is False;
+14. slo: ``slo check`` (PyYAML blocked) over the host phase's apply trace
+   and the fleet phase's trace must exit 0 with samples for all three
+   SLOs (``apply-availability``, ``watch-uptime``, ``admission-latency``);
+   a copy of the apply trace with every non-watch request answered 503
+   must exit 1 naming ``apply-availability`` and its window pair;
+15. contracts: ``conlint`` and ``pinlint --strict`` on this checkout must
+   exit 0, clean; their wall times are printed.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is ``{"ok": true, "device": {...}}``. Without a card, or without the
@@ -774,6 +795,34 @@ FLEET_PASS_S = 0.5
 FLEET_TARGET_VERSION = "gpu-stack-2"
 
 
+FLEET_DASH_WINDOW_S = 5.0
+# the three SLOs the card's traces must carry samples for
+SLO_NAMES = ("apply-availability", "watch-uptime", "admission-latency")
+
+
+def _port_cli(*argv, timeout: float = 300):
+    """``python -m tpu_cluster_torch ARGV`` from the repository root with
+    PyYAML made unimportable, whether or not this machine has it: only
+    the kubectl backend and ``render`` need it."""
+    no_yaml = ("import runpy, sys; sys.modules['yaml'] = None; "
+               "runpy.run_module('tpu_cluster_torch', run_name='__main__', "
+               "alter_sys=True)")
+    return subprocess.run([sys.executable, "-c", no_yaml, *map(str, argv)],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _dash_rows(frame: str) -> dict:
+    """A dash frame's target rows: job -> [UP, REQ/S, ERR/S, P99(MS)]."""
+    lines = frame.split("\n")
+    rows = {}
+    for line in lines[2:]:
+        fields = line.split()
+        if len(fields) >= 5 and fields[1] in ("0", "1", "?"):
+            rows[fields[0]] = fields[1:5]
+    return rows
+
+
 def _until(what: str, cond, timeout: float, step=None):
     """Run ``step`` (when given) and re-test ``cond`` until it holds;
     fails the run after ``timeout`` seconds."""
@@ -797,18 +846,24 @@ def _load(url: str, prompt, stop: threading.Event, done: list) -> None:
         done.append(replies[0][0] if replies[0] else None)
 
 
-def fleet_phase(torch) -> dict:
+def fleet_phase(torch, trace_dir=None) -> dict:
     """The fleet controllers on the card's own Node and its serving
     engine's duty gauge: admission (watch-driven) seats the autoscaler's
     replica gangs, the autoscaler scales out on the card's duty under
-    load and back in when idle, a maintenance wave drains and re-admits
-    the card's gang, and the queue CLI reads it without PyYAML."""
+    load and back in when idle, the dash reads the engine's and the
+    controllers' scraped series under load and after the scale-in (and
+    replays from a dump), the live SLO holds over them, a maintenance
+    wave drains and re-admits the card's gang, and the queue CLI reads it
+    without PyYAML. The phase's trace goes to ``trace_dir`` when given."""
+    import tempfile
+
     import numpy as np
 
     from tpu_cluster_torch import (admission, autoscale, events, kubeapply,
                                    maintenance, metricsdb, telemetry)
     from tpu_cluster_torch.discovery import labeler, labels
     from tpu_cluster_torch.kernels import flash_attention as fa
+    from tpu_cluster_torch.slo import format_report as slo_format
     from tpu_cluster_torch.spec import default_spec
     from tpu_cluster_torch.workloads import runtime_metrics, serving
 
@@ -833,7 +888,7 @@ def fleet_phase(torch) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     server = serving.ServingServer(engine)
 
-    tel = telemetry.Telemetry(retain_spans=False)
+    tel = telemetry.Telemetry(retain_spans=True)
     stop = threading.Event()
     with fake.FakeApiServer(auto_ready=True) as api:
         client = kubeapply.Client(api.url, telemetry=tel)
@@ -858,15 +913,19 @@ def fleet_phase(torch) -> dict:
                                         "stop": stop})
         loop.start()
         tsdb = metricsdb.TSDB()
-        scraper = None
+        scraper = tel_server = None
         try:
             # count this phase's run only
             for fn in (fa.flash_attention, fa.flash_attention_bwd_dkv,
                        fa.flash_attention_bwd_dq):
                 fn.launches = 0
             server.start()
+            # the controllers' own registry (the client's request
+            # families, the autoscaler's replicas) as a second target
+            tel_server = metricsdb.MetricsServer(tel.metrics, 0).start()
             scraper = metricsdb.ScrapeManager(
-                [metricsdb.Target("serving-0", server.metrics_url)], tsdb,
+                [metricsdb.Target("serving-0", server.metrics_url),
+                 metricsdb.Target("tpuctl", tel_server.url)], tsdb,
                 interval_s=FLEET_PASS_S, telemetry=tel).start()
             ctrl = autoscale.AutoscaleController(
                 client, ns, job="serving", accelerator=host.name,
@@ -876,11 +935,18 @@ def fleet_phase(torch) -> dict:
                                             component="gpu-autoscale",
                                             telemetry=tel))
             passes = []
+            # (monotonic time, tokens the engine decoded), a pass each
+            decoded = []
 
             def one_pass():
                 passes.append(ctrl.step())
+                decoded.append((time.monotonic(), engine.decoded_tokens))
                 time.sleep(FLEET_PASS_S)
                 return passes[-1]
+
+            def replicas_scraped():
+                reps = tsdb.latest(telemetry.AUTOSCALE_REPLICAS)
+                return metricsdb.aggregate(reps, "max") if reps else None
 
             # 1. idle: serving-0 converges and admission seats its gang
             one_pass()
@@ -925,6 +991,30 @@ def fleet_phase(torch) -> dict:
                     check(res.verdict in (autoscale.VERDICT_BLOCKED,
                                           autoscale.VERDICT_HOLD),
                           f"after the scale-out: {res.line()}")
+            # the dash under load, once a scrape after the scale-out
+            # has landed
+            _until("a scrape of replicas 2",
+                   lambda: replicas_scraped() == 2, 10)
+            frame = metricsdb.render_dash(tsdb, window_s=FLEET_DASH_WINDOW_S)
+            now_tok = (time.monotonic(), engine.decoded_tokens)
+            then = [d for d in decoded
+                    if d[0] <= now_tok[0] - FLEET_DASH_WINDOW_S]
+            then = then[-1] if then else decoded[0]
+            engine_tok_s = (now_tok[1] - then[1]) / (now_tok[0] - then[0])
+            print("fleet: dash under load:\n" + frame)
+            print(f"fleet: the engine's own count: {now_tok[1] - then[1]:.0f}"
+                  f" token(s) decoded in the last {now_tok[0] - then[0]:.1f}"
+                  f" s, {engine_tok_s:.1f} tok/s (for the record)")
+            rows = _dash_rows(frame)
+            tok = re.search(r"serving \([^)]*\): tok/s ([0-9.]+)", frame)
+            check(sorted(rows) == ["serving-0", "tpuctl"]
+                  and all(r[0] == "1" for r in rows.values()),
+                  f"dash rows under load: {rows}")
+            check(float(rows["tpuctl"][1]) > 0 and rows["tpuctl"][3] != "-",
+                  f"the tpuctl row {rows['tpuctl']}")
+            check(tok is not None and float(tok.group(1)) > 0
+                  and "| replicas 2" in frame,
+                  "the serving panel under load")
             load_stop.set()
             for th in clients:
                 th.join(timeout=120)
@@ -980,10 +1070,43 @@ def fleet_phase(torch) -> dict:
             check(verdicts.count(autoscale.VERDICT_UP) == 1
                   and verdicts.count(autoscale.VERDICT_DOWN) == 1,
                   f"verdicts {verdicts}")
+            _until("a scrape of replicas 1",
+                   lambda: replicas_scraped() == 1, 10)
+            frame = metricsdb.render_dash(tsdb, window_s=FLEET_DASH_WINDOW_S)
+            print("fleet: dash after the scale-in:\n" + frame)
+            check("| replicas 1" in frame, "the serving panel after the "
+                                           "scale-in")
         finally:
             if scraper is not None:
                 scraper.stop()
+            if tel_server is not None:
+                tel_server.stop()
             server.stop()
+
+        # the frame from a dump, through the CLI, and the live SLO
+        with tempfile.TemporaryDirectory() as tmp:
+            dump = os.path.join(tmp, "fleet-tsdb.json")
+            with open(dump, "w", encoding="utf-8") as f:
+                json.dump(tsdb.dump(), f)
+            with open(dump, encoding="utf-8") as f:
+                want = metricsdb.render_dash(metricsdb.TSDB.load(json.load(f)))
+            t0 = time.perf_counter()
+            proc = _port_cli("dash", "--replay", dump)
+            wall = time.perf_counter() - t0
+        check(proc.returncode == 0 and proc.stdout == want + "\n",
+              f"dash --replay exited {proc.returncode}: {proc.stderr} "
+              f"{proc.stdout!r} against {want!r}")
+        print(f"fleet: python -m tpu_cluster_torch dash --replay DUMP with "
+              f"PyYAML blocked: rc 0, equal to the in-process frame at the "
+              f"dump's clock ({len(want.splitlines())} lines), {wall:.2f} s")
+        live = metricsdb.live_slo_report(tsdb)
+        avail = {v.slo.name: v for v in live.verdicts}["apply-availability"]
+        print(f"fleet: live SLO over the fleet's TSDB: ok {live.ok}, "
+              f"apply-availability {avail.total_samples} sample(s) (the "
+              f"tpuctl target's {telemetry.REQUESTS_TOTAL})")
+        check(live.ok and avail.total_samples > 0,
+              "the live SLO over the fleet's TSDB:\n"
+              + slo_format(live))
         launches = fa.flash_attention.launches
         backward = (fa.flash_attention_bwd_dkv.launches,
                     fa.flash_attention_bwd_dq.launches)
@@ -1049,13 +1172,8 @@ def fleet_phase(torch) -> dict:
         check(version == FLEET_TARGET_VERSION, f"stack-version {version}")
 
         # 5. the queue CLI with PyYAML made unimportable
-        no_yaml = ("import runpy, sys; sys.modules['yaml'] = None; "
-                   "runpy.run_module('tpu_cluster_torch', "
-                   "run_name='__main__', alter_sys=True)")
-        proc = subprocess.run(
-            [sys.executable, "-c", no_yaml, "queue", "--apiserver", api.url,
-             "--json"], capture_output=True, text=True, timeout=120,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
+        proc = _port_cli("queue", "--apiserver", api.url, "--json",
+                         timeout=120)
         check(proc.returncode == 0, f"queue --json exited "
                                     f"{proc.returncode}: {proc.stderr}")
         gangs = {g["name"]: g["status"]
@@ -1069,6 +1187,13 @@ def fleet_phase(torch) -> dict:
         informers.stop()
         client.close()
     check(not loop.is_alive(), "the admission loop did not stop")
+    if trace_dir is not None:
+        path = os.path.join(trace_dir, "fleet-trace.json")
+        tel.write_trace(path)
+        with open(path, encoding="utf-8") as f:
+            spans = sum(1 for e in json.load(f)["traceEvents"]
+                        if e.get("ph") == "X")
+        print(f"fleet: trace of {spans} span(s) written")
     wall = time.perf_counter() - t_phase
     print(f"fleet: phase wall {wall:.1f} s")
     return {"launches": launches, "wall_s": wall, "duty": duty,
@@ -1419,7 +1544,7 @@ def crossover_phase(torch, smi_line: str) -> dict:
     return by_head
 
 
-def host_phase(torch) -> None:
+def host_phase(torch, trace_dir=None) -> None:
     """Discovery of the machine's cards (the device nodes whose minor
     numbers NVML reports), the node labels of its host layout, then the
     GPU stack rendered for that layout: the operand rollout groups, the
@@ -1428,7 +1553,8 @@ def host_phase(torch) -> None:
     ``gpu-feature-discovery`` container's command run here and must exit
     0, the latter with the labels computed here and ``GpuReady`` True; and
     device-query's and vector-add's container command and args run on the
-    card and must exit 0 with ``ok``."""
+    card and must exit 0 with ``ok``. The apply CLI's trace goes to
+    ``trace_dir`` when given."""
     import tempfile
 
     from tpu_cluster_torch import lint
@@ -1537,7 +1663,7 @@ def host_phase(torch) -> None:
                   f"{' '.join(argv)}: rc 0, ok {doc['ok']}, {wall:.1f} s")
             check(doc["ok"] is True, f"{job}: {doc}")
             runs[job] = proc
-    apply_step(spec, bundles)
+    apply_step(spec, bundles, trace_dir)
     verify_step(spec, record, len(found), runs)
 
 
@@ -1623,10 +1749,12 @@ def _gated_in_order(log, groups, kubeapply) -> list:
     return bad
 
 
-def apply_step(spec, bundles) -> None:
+def apply_step(spec, bundles, trace_dir=None) -> None:
     """The port's apply engine on the card's own stack, against the fake
     apiserver: stored, gated group by group, traced, no retries; then
-    deleted. Then the CLI's REST path without PyYAML."""
+    deleted. Then the CLI's REST path without PyYAML, its trace merged
+    with the fake's, validated and summarized by ``top``."""
+    import shutil
     import tempfile
 
     from tpu_cluster_torch import kubeapply, telemetry
@@ -1690,33 +1818,115 @@ def apply_step(spec, bundles) -> None:
 
     # the CLI's REST path with PyYAML made unimportable, whether or not
     # this machine has it: only the kubectl backend and `render` need it
-    no_yaml = ("import runpy, sys; sys.modules['yaml'] = None; "
-               "runpy.run_module('tpu_cluster_torch', run_name='__main__', "
-               "alter_sys=True)")
     with fake.FakeApiServer(auto_ready=True) as api, \
             tempfile.TemporaryDirectory() as tmp:
         trace = os.path.join(tmp, "apply-trace.json")
-        argv = [sys.executable, "-c", no_yaml, "apply",
-                "--apiserver", api.url, "--wait", "--poll", "0.05",
+        argv = ["apply", "--apiserver", api.url, "--wait", "--poll", "0.05",
                 "--trace-out", trace,
                 "--flight-recorder", os.path.join(tmp, "flight.json")]
         t0 = time.perf_counter()
-        proc = subprocess.run(argv, capture_output=True, text=True,
-                              timeout=300,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        proc = _port_cli(*argv)
         wall = time.perf_counter() - t0
         check(proc.returncode == 0 and "apply: converged" in proc.stdout,
-              f"{' '.join(argv[3:])} exited {proc.returncode}: "
+              f"{' '.join(argv)} exited {proc.returncode}: "
               f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
         with open(trace, encoding="utf-8") as f:
-            spans = [e for e in json.load(f)["traceEvents"]
-                     if e.get("ph") == "X"]
+            cli_doc = json.load(f)
+        spans = [e for e in cli_doc["traceEvents"] if e.get("ph") == "X"]
         check(any(e["name"] == "rollout" for e in spans),
               "the CLI's trace has no rollout span")
         print(f"host: python -m tpu_cluster_torch apply --apiserver URL "
               f"--wait with PyYAML blocked: rc 0, apply: converged, "
               f"{len(api.store)} object(s), {len(api.log)} request(s), "
               f"trace of {len(spans)} span(s), {wall:.2f} s")
+
+        # the trace readers: the CLI's trace merged with the server's
+        t0 = time.perf_counter()
+        server = os.path.join(tmp, "server-trace.json")
+        with urllib.request.urlopen(api.url + "/__fake_trace",
+                                    timeout=30) as resp, \
+                open(server, "wb") as f:
+            f.write(resp.read())
+        merged = os.path.join(tmp, "merged.json")
+        runs = {"merge": _port_cli("trace", "merge", "-o", merged, trace,
+                                   server),
+                "validate": _port_cli("trace", "validate", merged),
+                "top": _port_cli("top", trace)}
+        for what, run in runs.items():
+            check(run.returncode == 0, f"trace {what} exited "
+                                       f"{run.returncode}: {run.stderr}")
+        with open(merged, encoding="utf-8") as f:
+            merged_doc = json.load(f)
+        trace_id = cli_doc["otherData"]["trace_id"]
+        phases = [p for p in ("apply", "crd-establish", "ready-wait")
+                  if re.search(rf"^  {p} +[0-9.]+s$", runs["top"].stdout,
+                               re.M)]
+        print(f"host: trace merge of the CLI's and the server's traces: "
+              f"{len(merged_doc['traceEvents'])} event(s) from "
+              f"{merged_doc['otherData']['merged_from']}, trace ids "
+              f"{merged_doc['otherData']['trace_ids']}; trace validate rc "
+              f"0 ({runs['validate'].stdout.strip()}); top rc 0, phases "
+              f"{phases}; {time.perf_counter() - t0:.2f} s")
+        check(trace_id in merged_doc["otherData"]["trace_ids"],
+              f"the merged trace lacks the CLI's trace id {trace_id}")
+        check(phases == ["apply", "crd-establish", "ready-wait"],
+              f"top lists the phases {phases}:\n{runs['top'].stdout}")
+        if trace_dir is not None:
+            shutil.copy(trace, os.path.join(trace_dir, "apply-trace.json"))
+
+
+def slo_phase(trace_dir: str) -> None:
+    """``slo check`` over the card's traces (the host phase's apply
+    trace and the fleet phase's): healthy, with samples for all three
+    SLOs; and a copy of the apply trace with every non-watch request
+    answered 503 must burn ``apply-availability``."""
+    t0 = time.perf_counter()
+    apply_trace = os.path.join(trace_dir, "apply-trace.json")
+    traces = (apply_trace, os.path.join(trace_dir, "fleet-trace.json"))
+    proc = _port_cli("slo", "check", *traces)
+    check(proc.returncode == 0, f"slo check over the card's traces exited "
+                                f"{proc.returncode}:\n{proc.stdout}"
+                                f"{proc.stderr}")
+    doc = json.loads(_port_cli("slo", "check", *traces, "--json").stdout)
+    samples = {v["name"]: v["samples"] for v in doc["slos"]}
+    print("slo: python -m tpu_cluster_torch slo check APPLY_TRACE "
+          "FLEET_TRACE with PyYAML blocked: rc 0\n" + proc.stdout.rstrip())
+    print(f"slo: samples {samples}")
+    check(all(samples.get(name, 0) > 0 for name in SLO_NAMES),
+          f"SLO samples {samples}")
+    with open(apply_trace, encoding="utf-8") as f:
+        control = json.load(f)
+    flipped = 0
+    for e in control["traceEvents"]:
+        args = e.get("args") or {}
+        if e.get("ph") == "X" and e.get("cat") == "http" \
+                and not args.get("watch"):
+            args["status"] = 503
+            flipped += 1
+    path = os.path.join(trace_dir, "control-503.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(control, f)
+    proc = _port_cli("slo", "check", path)
+    last = proc.stdout.strip().split("\n")[-1]
+    print(f"slo: control ({flipped} request(s) answered 503): rc "
+          f"{proc.returncode}, {last!r}; {time.perf_counter() - t0:.2f} s")
+    check(proc.returncode == 1 and re.search(
+        r"apply-availability: (page \(5m/1h\)|warn \(6h/3d\))", last),
+          f"the 503 control: rc {proc.returncode}, {last!r}")
+
+
+def contracts_phase() -> None:
+    """The port's concurrency lint and contract pin audit on this
+    checkout: both clean."""
+    for argv, want in ((("conlint",), "conlint: clean"),
+                       (("pinlint", "--strict"), "pinlint: clean")):
+        t0 = time.perf_counter()
+        proc = _port_cli(*argv)
+        wall = time.perf_counter() - t0
+        print(f"contracts: python -m tpu_cluster_torch {' '.join(argv)}: "
+              f"rc {proc.returncode}, {proc.stdout.strip()!r}, {wall:.2f} s")
+        check(proc.returncode == 0 and proc.stdout.strip() == want,
+              f"{' '.join(argv)}: {proc.stdout}{proc.stderr}")
 
 
 def verify_step(spec, record: dict, cards: int, runs: dict) -> None:
@@ -1841,13 +2051,22 @@ def main() -> int:
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     # the port must sit beside this script; nothing is printed without it
     import tpu_cluster_torch.workloads.serving  # noqa: F401
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as traces:
+        return run_phases(torch, traces)
+
+
+def run_phases(torch, traces: str) -> int:
+    """Every phase in order; the fleet and host phases write their
+    traces into ``traces`` for the SLO phase."""
     name, acc, smi_line = device_phase(torch)
     build_phase()
     forward = flash_phase(torch, acc)
     backward = backward_phase(torch, acc)
     head_phase(torch)
     served = serving_phase(torch)
-    fleet = fleet_phase(torch)
+    fleet = fleet_phase(torch, traces)
     trained = training_phase(torch)
     sharded = sharded_phase(torch, trained)
     timed = timed_phase(torch, acc, trained)
@@ -1860,7 +2079,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cross = crossover_phase(torch, smi_line)
-    host_phase(torch)
+    host_phase(torch, traces)
+    slo_phase(traces)
+    contracts_phase()
     # the records at d_head 256; those at 128 beside them
     k1 = forward[256]
     k1["training_shape"] = backward[256]["k1_training"]

@@ -7,7 +7,9 @@ Compared exactly unless a test says otherwise: span names, categories
 and nesting of the same rollout through each engine; the export's shape
 (the reference's ``validate_chrome_trace`` must accept the port's
 trace); the request counters; the flight recorder's records after a
-failed rollout. Times are never compared.
+failed rollout. Times are never compared. The registry's read
+accessors (``total``, ``family_types``, ``Histogram.cumulative``) give
+the reference's values, exactly, on the same observations.
 """
 
 import json
@@ -199,3 +201,58 @@ def test_write_outputs_are_atomic_and_parseable(tmp_path):
         "m.prom", "t.json", "w.json"]  # no scratch file left behind
     with pytest.raises(OSError):
         tel.write_trace(str(tmp_path / "missing" / "t.json"))
+
+
+def _observed_registry(tel):
+    reg = tel.MetricsRegistry()
+    for code, verb, n in (("200", "GET", 3), ("200", "PATCH", 2),
+                          ("503", "GET", 4), ("429", "POST", 1)):
+        reg.counter(tel.REQUESTS_TOTAL, "requests", code=code,
+                    verb=verb).inc(n)
+    reg.gauge(tel.SERVING_QUEUE_DEPTH, "queue").set(2.5)
+    reg.gauge(tel.SERVING_QUEUE_DEPTH, "queue", job="b").set(-1.0)
+    hist = reg.histogram(tel.REQUEST_SECONDS, "latency",
+                         buckets=(0.01, 0.1, 1.0), verb="GET")
+    for v in (0.001, 0.05, 0.05, 0.5, 7.0):
+        hist.observe(v)
+    reg.histogram(tel.REQUEST_SECONDS, "latency", buckets=(0.01, 0.1, 1.0),
+                  verb="PATCH").observe(0.2)
+    return reg, hist
+
+
+@pytest.mark.parametrize("name,labels", [
+    ("tpuctl_requests_total", {}),
+    ("tpuctl_requests_total", {"code": "200"}),
+    ("tpuctl_requests_total", {"code": "503", "verb": "GET"}),
+    ("tpuctl_requests_total", {"code": "404"}),
+    ("tpu_serving_queue_depth", {}),
+    ("tpu_serving_queue_depth", {"job": "b"}),
+    ("tpuctl_request_duration_seconds", {}),
+    ("tpuctl_request_duration_seconds", {"verb": "GET"}),
+    ("absent_family_total", {}),
+])
+def test_registry_total_equals_the_reference(name, labels):
+    got = []
+    for tel in (ref_telemetry, telemetry):
+        reg, _ = _observed_registry(tel)
+        got.append(reg.total(name, **labels))
+        # an absent family reads 0.0 and is not created by the read
+        assert "absent_family_total" not in reg.render()
+    assert got[1] == got[0]
+
+
+def test_registry_family_types_and_cumulative_equal_the_reference():
+    (ref_reg, ref_hist), (reg, hist) = (_observed_registry(tel)
+                                        for tel in (ref_telemetry,
+                                                    telemetry))
+    assert reg.family_types() == ref_reg.family_types() == {
+        "tpuctl_requests_total": "counter",
+        "tpu_serving_queue_depth": "gauge",
+        "tpuctl_request_duration_seconds": "histogram"}
+    assert hist.cumulative() == ref_hist.cumulative() == [1, 3, 4, 5]
+    assert telemetry.MetricsRegistry().family_types() == {}
+
+
+def test_operator_trace_events_equal_the_reference():
+    assert telemetry.OPERATOR_TRACE_EVENTS == \
+        ref_telemetry.OPERATOR_TRACE_EVENTS

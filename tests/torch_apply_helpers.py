@@ -1,8 +1,10 @@
 """Shared pieces of the port's apply-path and fleet-controller tests
 (``test_torch_kubeapply``, ``test_torch_telemetry``, ``test_torch_events``,
 ``test_torch_admission``, ``test_torch_maintenance``,
-``test_torch_autoscale``): the wire recorder, the fleet helpers below, and
-a fixture that turns Nagle's algorithm off on the fake apiserver's
+``test_torch_autoscale``, and the observability and contract tools'
+tests): the wire recorder, the fleet helpers below, the port's CLI in a
+subprocess (:func:`run_port_cli`), and a fixture that turns Nagle's
+algorithm off on the fake apiserver's
 connections. The fake writes a reply's headers and body in two sends;
 with Nagle on, the body waits for the client's delayed ACK (about 40 ms
 a request on some kernels). Turning it off changes no byte on the
@@ -10,12 +12,30 @@ wire."""
 
 import http.client
 import json
+import os
 import re
 import socketserver
+import subprocess
+import sys
 
 import pytest
 
 _TRACEPARENT = re.compile(r"00-[0-9a-f]{32}-[0-9a-f]{16}-01")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
+
+
+def run_port_cli(*argv, block_yaml=True, timeout=60):
+    """``python -m tpu_cluster_torch ARGV`` in a subprocess from the repo
+    root, with PyYAML made unimportable unless ``block_yaml`` is False
+    (the observability and lint commands must not need it)."""
+    code = ("import runpy, sys\n"
+            + ("sys.modules['yaml'] = None\n" if block_yaml else "")
+            + "runpy.run_module('tpu_cluster_torch', run_name='__main__', "
+              "alter_sys=True)\n")
+    return subprocess.run([sys.executable, "-c", code, *map(str, argv)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
 
 
 @pytest.fixture(autouse=True)

@@ -1,8 +1,6 @@
-"""The port's CLI (``python -m tpu_cluster_torch``): the render, lint,
-apply, delete, events, verify, triage, queue, admission, maintain and
-autoscale commands of the reference's ``tpuctl``
-(``tpu_cluster/__main__.py``), with its flags, defaults, messages and
-exit codes.
+"""The port's CLI (``python -m tpu_cluster_torch``): the commands of the
+reference's ``tpuctl`` (``tpu_cluster/__main__.py``), with its flags,
+defaults, messages and exit codes.
 
   render   cluster spec -> node-prep / kubeadm scripts, operand manifests,
            validation Jobs, operator install, operator bundle
@@ -27,6 +25,17 @@ exit codes.
   admission  the gang-admission control loop (--once, --watch)
   maintain   rolling maintenance waves: plan | run | status
   autoscale  the metrics-driven serving autoscaler: run | status
+  slo      multi-window multi-burn-rate SLO evaluation over span-derived
+           samples (`slo check TRACE...`, exit 1 when a budget burns)
+           or, with `--live --targets JOB=URL`, over scraped counters
+  dash     terminal dashboard over a scrape-fed time-series store
+           (`--once --replay FILE` renders a frame from a dumped TSDB)
+  trace    merge per-process Chrome traces into one timeline, or
+           validate one against the trace-event schema
+  top      per-phase/per-object breakdown of an `apply --trace-out` trace
+  conlint  concurrency lint over the port's sources (CL01-CL05)
+  pinlint  contract pin audit: the port's registry against the native
+           operator's C++ tables, the enforcer files, docs and CI
 
     python -m tpu_cluster_torch render --out DIR [--spec FILE] [--multihost N]
     python -m tpu_cluster_torch lint [--strict] [--operator] [--format json]
@@ -39,9 +48,16 @@ exit codes.
     python -m tpu_cluster_torch admission --apiserver URL [--once|--watch]
     python -m tpu_cluster_torch maintain plan|run|status --apiserver URL
     python -m tpu_cluster_torch autoscale run|status --apiserver URL
+    python -m tpu_cluster_torch slo check TRACE... | --live --targets JOB=URL
+    python -m tpu_cluster_torch dash --targets JOB=URL [--once] | --replay FILE
+    python -m tpu_cluster_torch trace merge -o OUT TRACE... | validate FILE
+    python -m tpu_cluster_torch top TRACE
+    python -m tpu_cluster_torch conlint [PATH...] [--format json]
+    python -m tpu_cluster_torch pinlint [--strict] [--dump] [--format json]
 
-The REST backend (``--apiserver``) needs no PyYAML; the kubectl backend
-and ``render`` import it.
+The REST backend (``--apiserver``) needs no PyYAML, nor do the
+observability and lint commands; the kubectl backend and ``render``
+import it.
 """
 
 from __future__ import annotations
@@ -55,11 +71,13 @@ from typing import Dict
 
 from . import admission as admissionmod
 from . import autoscale as autoscalemod
+from . import conlint as conlintmod
 from . import events as eventsmod
 from . import kubeapply
 from . import lint as lintmod
 from . import maintenance as maintenancemod
 from . import metricsdb as metricsdbmod
+from . import slo as slomod
 from . import spec as specmod
 from . import telemetry, triage, verify
 from .render import jobs, kubeadm, manifests, nodeprep, operator_bundle
@@ -359,7 +377,9 @@ def cmd_apply(args) -> int:
             try:
                 tel.write_trace(args.trace_out)
                 print(f"apply: trace written to {args.trace_out} "
-                      "(chrome://tracing / Perfetto)")
+                      "(chrome://tracing / Perfetto; summarize with "
+                      f"`python -m tpu_cluster_torch top "
+                      f"{args.trace_out}`)")
             except OSError as exc:
                 print(f"apply: cannot write trace to {args.trace_out}: "
                       f"{exc}", file=sys.stderr)
@@ -393,6 +413,33 @@ def cmd_delete(args) -> int:
         return 1
     print("delete: done")
     return 0
+
+
+def cmd_conlint(args) -> int:
+    """Concurrency lint (dev surface): the guarded-by annotation checker
+    over Python sources — `conlint` with no paths audits the port's
+    package."""
+    argv = list(args.paths)
+    if args.format != "table":
+        argv += ["--format", args.format]
+    return conlintmod.main(argv)
+
+
+def cmd_pinlint(args) -> int:
+    """Contract pin audit (dev surface): the registry-vs-C++/docs/CI
+    differ — `pinlint --strict` is the gate, `--dump` prints the
+    registry itself."""
+    from . import pinlint as pinlintmod
+    argv = []
+    if args.strict:
+        argv.append("--strict")
+    if args.dump:
+        argv.append("--dump")
+    if args.format != "table":
+        argv += ["--format", args.format]
+    if args.native_root:
+        argv += ["--native-root", args.native_root]
+    return pinlintmod.main(argv)
 
 
 def cmd_lint(args) -> int:
@@ -876,6 +923,149 @@ def cmd_events(args) -> int:
         client.close()
     return 0
 
+
+def _slo_live_report(args):
+    """The `slo check --live` evidence pass: scrape every target for
+    --duration at --scrape-interval into a fresh TSDB, then evaluate
+    the SLO set over the scraped counter ratios (same verdict math and
+    report shape as the trace path). Down targets are noted on stderr
+    — a dead target is `up 0` data, never an exception (the
+    ScrapeManager's fail-open contract)."""
+    targets = _parse_targets(args.targets)
+    tsdb = metricsdbmod.TSDB()
+    manager = metricsdbmod.ScrapeManager(
+        targets, tsdb, interval_s=args.scrape_interval,
+        timeout_s=args.scrape_timeout)
+    try:
+        deadline = time.monotonic() + max(0.0, args.duration)
+        manager.scrape_once()
+        while time.monotonic() < deadline:
+            time.sleep(max(0.01, args.scrape_interval))
+            manager.scrape_once()
+    finally:
+        manager.stop()
+    for job, up in sorted(manager.up_snapshot().items()):
+        if not up:
+            print(f"slo: note: target {job} is down (up 0) — its "
+                  "families contribute no live samples",
+                  file=sys.stderr)
+    return metricsdbmod.live_slo_report(tsdb, scale=args.scale)
+
+
+def cmd_slo(args) -> int:
+    """`slo check TRACE...`: evaluate the SLO set as
+    multi-window multi-burn-rate rules over span-derived samples —
+    or, with `--live --targets JOB=URL...`, over counter ratios
+    scraped from live /metrics endpoints. Exit 0 = every error budget
+    healthy, 1 = burning (window pair named), 2 = unreadable/invalid
+    input. Both modes share the verdict math, report shape and rc
+    contract (the sample-source abstraction in slo.py)."""
+    if args.live:
+        if args.traces:
+            print("slo: --live evaluates scraped targets; drop the "
+                  "TRACE arguments (or drop --live)", file=sys.stderr)
+            return 2
+        if not args.targets:
+            print("slo: --live needs at least one --targets JOB=URL",
+                  file=sys.stderr)
+            return 2
+        try:
+            report = _slo_live_report(args)
+        except ValueError as exc:
+            print(f"slo: {exc}", file=sys.stderr)
+            return 2
+    else:
+        if args.targets:
+            print("slo: --targets needs --live (trace mode reads "
+                  "files)", file=sys.stderr)
+            return 2
+        if not args.traces:
+            print("slo: pass TRACE files (or --live --targets ...)",
+                  file=sys.stderr)
+            return 2
+        docs = []
+        for path in args.traces:
+            try:
+                docs.append(slomod.load_trace(path))
+            except OSError as exc:
+                print(f"slo: cannot read {path}: {exc}", file=sys.stderr)
+                return 2
+            except ValueError as exc:
+                print(f"slo: {path}: not a trace: {exc}",
+                      file=sys.stderr)
+                return 2
+        try:
+            report = slomod.evaluate(docs, scale=args.scale)
+        except ValueError as exc:
+            print(f"slo: {exc}", file=sys.stderr)
+            return 2
+    if args.json:
+        print(json.dumps(report.to_dict()))
+    else:
+        print(slomod.format_report(report))
+    return 0 if report.ok else 1
+
+
+def cmd_dash(args) -> int:
+    """`dash`: terminal dashboard over a scrape-fed TSDB —
+    per-target up, request/error rates, p99 latency, sparklines, event
+    counts. Live mode redraws every --interval; --once renders one
+    frame; --replay FILE renders a DETERMINISTIC frame from a dumped
+    TSDB (the golden-test surface — byte-exact for a given dump)."""
+    if args.replay:
+        try:
+            with open(args.replay, encoding="utf-8") as f:
+                doc = json.load(f)
+            tsdb = metricsdbmod.TSDB.load(doc)
+        except OSError as exc:
+            print(f"dash: cannot read {args.replay}: {exc}",
+                  file=sys.stderr)
+            return 2
+        except ValueError as exc:
+            print(f"dash: {args.replay}: {exc}", file=sys.stderr)
+            return 2
+        print(metricsdbmod.render_dash(tsdb, window_s=args.window))
+        return 0
+    if not args.targets:
+        print("dash: pass --targets JOB=URL (repeatable) or --replay "
+              "FILE", file=sys.stderr)
+        return 2
+    tsdb = metricsdbmod.TSDB()
+    try:
+        # ValueError covers bad JOB=URL specs AND duplicate job names
+        # (the manager's constructor check) — both are rc-2 bad input
+        manager = metricsdbmod.ScrapeManager(
+            _parse_targets(args.targets), tsdb,
+            interval_s=args.interval, timeout_s=args.scrape_timeout)
+    except ValueError as exc:
+        print(f"dash: {exc}", file=sys.stderr)
+        return 2
+    try:
+        if args.once:
+            # two scrapes one short gap apart: a single snapshot has no
+            # deltas, and a rate-free dashboard answers nothing
+            manager.scrape_once()
+            time.sleep(min(0.5, args.interval))
+            manager.scrape_once()
+            print(metricsdbmod.render_dash(tsdb, window_s=args.window))
+            return 0
+        manager.start()
+        frames = 0
+        while args.frames <= 0 or frames < args.frames:
+            time.sleep(args.interval)
+            frames += 1
+            # ANSI clear + home, then one frame — a dumb-terminal
+            # redraw loop, not a TUI dependency
+            print("\x1b[2J\x1b[H"
+                  + metricsdbmod.render_dash(tsdb, window_s=args.window),
+                  flush=True)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        manager.stop()
+    return 0
+
+
 def cmd_verify(args) -> int:
     spec = _load_spec(args.spec)
     names = (list(verify.CHECKS) if args.config == "all"
@@ -912,6 +1102,93 @@ def cmd_verify(args) -> int:
 def cmd_triage(args) -> int:
     spec = _load_spec(args.spec)
     print(triage.run_triage(spec).text())
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Trace-file tooling for the cluster-wide correlation layer:
+
+    - ``trace merge -o OUT IN...`` assembles per-process Chrome
+      traces (``apply --trace-out``, the fake apiserver's
+      ``/__fake_trace``, the C++ operator's ``--trace-out``, a flight-
+      recorder dump) into ONE Perfetto timeline: per-process tracks,
+      epoch-aligned time axis, trace/span ids left intact for
+      correlation.
+    - ``trace validate FILE`` checks a trace (merged or single)
+      against the Chrome trace-event schema — the CI artifact gate.
+    """
+    def load(path: str):
+        try:
+            with open(path, encoding="utf-8") as f:
+                return json.load(f)
+        except OSError as exc:
+            print(f"trace: cannot read {path}: {exc}", file=sys.stderr)
+            return None
+        except ValueError as exc:
+            print(f"trace: {path} is not JSON: {exc}", file=sys.stderr)
+            return None
+
+    if args.trace_cmd == "validate":
+        doc = load(args.trace)
+        if doc is None:
+            return 2
+        try:
+            complete = telemetry.validate_chrome_trace(doc)
+        except ValueError as exc:
+            print(f"trace: {args.trace} is not a valid Chrome trace: "
+                  f"{exc}", file=sys.stderr)
+            return 1
+        total = len(doc.get("traceEvents", []))
+        print(f"trace: {args.trace} valid — {total} event(s), "
+              f"{complete} complete span(s)")
+        return 0
+
+    docs = []
+    for path in args.inputs:
+        doc = load(path)
+        if doc is None:
+            return 2
+        docs.append(doc)
+    try:
+        merged = telemetry.merge_traces(docs)
+    except ValueError as exc:
+        print(f"trace merge: {exc}", file=sys.stderr)
+        return 1
+    try:
+        telemetry.write_json(args.out, merged)
+    except OSError as exc:
+        print(f"trace merge: cannot write {args.out}: {exc}",
+              file=sys.stderr)
+        return 2
+    other = merged["otherData"]
+    shared = other["trace_ids"]
+    print(f"trace: merged {len(docs)} trace(s) "
+          f"({', '.join(other['merged_from'])}) -> {args.out} "
+          f"({len(merged['traceEvents'])} events"
+          + (f"; shared trace ids: {', '.join(shared)}" if shared else "")
+          + "); open in ui.perfetto.dev or summarize with "
+          f"`python -m tpu_cluster_torch top {args.out}`")
+    return 0
+
+
+def cmd_top(args) -> int:
+    """Per-phase / per-object breakdown of a saved rollout trace
+    (`apply --trace-out`) — where the wall time went, without
+    leaving the terminal."""
+    try:
+        with open(args.trace, encoding="utf-8") as f:
+            doc = json.load(f)
+    except OSError as exc:
+        print(f"top: cannot read {args.trace}: {exc}", file=sys.stderr)
+        return 2
+    except ValueError as exc:
+        print(f"top: {args.trace} is not JSON: {exc}", file=sys.stderr)
+        return 2
+    try:
+        print(telemetry.summarize_trace(doc, limit=args.limit))
+    except ValueError as exc:
+        print(f"top: {exc}", file=sys.stderr)
+        return 2
     return 0
 
 
@@ -1102,6 +1379,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="remove the operator install set (CRD, policy CR, "
                         "bundle, controller) instead of the operands")
     p.set_defaults(fn=cmd_delete)
+
+    p = sub.add_parser(
+        "conlint", help="concurrency lint: enforce '# guarded-by:' lock "
+                        "annotations, thread-shared-state hygiene and "
+                        "explicit cross-thread span parents over Python "
+                        "sources (rules CL01-CL05)")
+    p.add_argument("paths", nargs="*",
+                   help="files/directories (default: the "
+                        "tpu_cluster_torch package)")
+    p.add_argument("--format", choices=("table", "json"), default="table",
+                   help="findings as lines (default) or one JSON "
+                        "document")
+    p.set_defaults(fn=cmd_conlint)
+
+    p = sub.add_parser(
+        "pinlint", help="contract pin analyzer: diff the machine-readable "
+                        "contract registry against the C++ twin accessors, "
+                        "enforcer files, docs and CI greps (rules "
+                        "PL01-PL06)")
+    p.add_argument("--strict", action="store_true",
+                   help="fail on docs/CI drift warnings too (the gate)")
+    p.add_argument("--dump", action="store_true",
+                   help="print the contract registry as JSON and exit")
+    p.add_argument("--format", choices=("table", "json"), default="table",
+                   help="findings as lines (default) or one JSON "
+                        "document")
+    p.add_argument("--native-root", default="",
+                   help="override where native/ sources are read from "
+                        "(drift tests)")
+    p.set_defaults(fn=cmd_pinlint)
 
     p = sub.add_parser(
         "queue", help="list/describe the gang-admission queue "
@@ -1316,6 +1623,81 @@ def build_parser() -> argparse.ArgumentParser:
                         "the table (list mode only)")
     p.set_defaults(fn=cmd_events)
 
+    p = sub.add_parser(
+        "slo", help="SLO burn-rate evaluation over span-derived "
+                    "samples (SRE-workbook multi-window multi-burn-rate "
+                    "rules: 5m/1h page, 6h/3d warn)")
+    ssub = p.add_subparsers(dest="slo_cmd", required=True)
+    sp = ssub.add_parser(
+        "check", help="evaluate every SLO x window pair over one or "
+                      "more rollout traces; exit 1 when a budget is "
+                      "burning (window pair named)")
+    sp.add_argument("traces", nargs="*", metavar="TRACE",
+                    help="Chrome trace JSON files (apply "
+                         "--trace-out, a Telemetry.write_trace, "
+                         "flight-recorder dumps); omitted in --live "
+                         "mode")
+    sp.add_argument("--scale", type=float, default=None,
+                    help="nominal seconds represented by one trace "
+                         "second (default: the 1h page window spans "
+                         "the whole trace / scraped span)")
+    sp.add_argument("--live", action="store_true",
+                    help="evaluate over LIVE scraped counter ratios "
+                         "instead of trace spans: scrape --targets "
+                         "for --duration, then apply the same "
+                         "multi-window rules to windowed bad/total "
+                         "increases of the code-labeled request "
+                         "counters (same report shape and rc "
+                         "contract)")
+    sp.add_argument("--targets", action="append", default=[],
+                    metavar="JOB=URL",
+                    help="scrape target for --live (repeatable): a "
+                         "full exposition URL, e.g. "
+                         "serving=http://127.0.0.1:8000/metrics or the "
+                         "fake's .../__fake_metrics")
+    sp.add_argument("--duration", type=float, default=2.0,
+                    help="--live: how long to scrape before "
+                         "evaluating (seconds, default 2)")
+    sp.add_argument("--scrape-interval", type=float, default=0.25,
+                    help="--live: seconds between scrapes "
+                         "(default 0.25)")
+    sp.add_argument("--scrape-timeout", type=float, default=2.0,
+                    help="--live: whole-attempt wall per scrape "
+                         "(default 2; a stalled target marks up 0 at "
+                         "the wall, never blocks the loop)")
+    sp.add_argument("--json", action="store_true",
+                    help="one machine-readable JSON document instead "
+                         "of the table")
+    sp.set_defaults(fn=cmd_slo)
+
+    p = sub.add_parser(
+        "dash", help="terminal dashboard over a scrape-fed "
+                     "time-series store: per-target up, request/error "
+                     "rates, p99 latency sparklines, event counts")
+    p.add_argument("--targets", action="append", default=[],
+                   metavar="JOB=URL",
+                   help="scrape target (repeatable): a serving "
+                        "replica's /metrics, the fake's "
+                        "/__fake_metrics, a control loop's "
+                        "--metrics-port endpoint")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="seconds between scrapes/redraws (default 2)")
+    p.add_argument("--window", type=float, default=60.0,
+                   help="rate/quantile window in seconds (default 60)")
+    p.add_argument("--once", action="store_true",
+                   help="render a single frame and exit (two quick "
+                        "scrapes so rates exist)")
+    p.add_argument("--replay", default="", metavar="FILE",
+                   help="render one DETERMINISTIC frame from a dumped "
+                        "TSDB JSON snapshot instead of scraping — the "
+                        "golden-test surface (implies --once)")
+    p.add_argument("--frames", type=int, default=0,
+                   help="live mode: stop after N frames (0 = until "
+                        "interrupted; the scripting/CI bound)")
+    p.add_argument("--scrape-timeout", type=float, default=2.0,
+                   help="whole-attempt wall per scrape (default 2)")
+    p.set_defaults(fn=cmd_dash)
+
     p = sub.add_parser("verify", help="run the acceptance runbook")
     p.add_argument("--spec", default="")
     p.add_argument("--config", default="all",
@@ -1329,8 +1711,41 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("triage", help="run the troubleshooting runbook")
     p.add_argument("--spec", default="")
     p.set_defaults(fn=cmd_triage)
-    return ap
 
+    p = sub.add_parser(
+        "trace", help="merge per-process Chrome traces into one "
+                      "Perfetto timeline, or validate one against the "
+                      "trace-event schema")
+    tsub = p.add_subparsers(dest="trace_cmd", required=True)
+    tp = tsub.add_parser(
+        "merge", help="assemble CLI + fake-apiserver + operator traces "
+                      "into one timeline with per-process tracks and "
+                      "shared trace ids")
+    tp.add_argument("inputs", nargs="+", metavar="TRACE",
+                    help="Chrome trace JSON files (apply "
+                         "--trace-out, /__fake_trace captures, "
+                         "tpu-operator --trace-out, flight-recorder "
+                         "dumps)")
+    tp.add_argument("-o", "--out", required=True, metavar="PATH",
+                    help="write the merged timeline here (atomic)")
+    tp.set_defaults(fn=cmd_trace)
+    tp = tsub.add_parser(
+        "validate", help="check a trace file against the Chrome "
+                         "trace-event schema (the CI artifact gate)")
+    tp.add_argument("trace", help="trace JSON to validate")
+    tp.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser(
+        "top", help="summarize a saved rollout trace (apply "
+                    "--trace-out): per-phase totals, request counts by "
+                    "verb/status, retries, slowest spans")
+    p.add_argument("trace", help="Chrome trace-event JSON written by "
+                                 "apply --trace-out (or "
+                                 "Telemetry.write_trace)")
+    p.add_argument("--limit", type=int, default=10,
+                   help="how many slowest spans to show (default 10)")
+    p.set_defaults(fn=cmd_top)
+    return ap
 
 
 

@@ -1,8 +1,8 @@
-"""Continuous metrics: the scrape pipeline's parser, time-series store
-and scraper, and a registry behind a daemon-threaded ``/metrics``
-endpoint. The port's own copy of the first three layers of
-``tpu_cluster/metricsdb.py`` and of its ``MetricsServer``; the live-SLO
-and dashboard layers are not ported here.
+"""Continuous metrics: scrape pipeline, time-series store, live SLO
+sources and the terminal dashboard — stdlib only. The port's own copy
+of ``tpu_cluster/metricsdb.py``, whole: the four layers and
+``MetricsServer``, a registry behind a daemon-threaded ``/metrics``
+endpoint.
 
 PARSER — :func:`parse_text` reads Prometheus text exposition into flat
 ``{(name, sorted label pairs): value}`` samples plus the ``# TYPE`` /
@@ -18,7 +18,7 @@ restarted target's counter dropping to zero contributes its new value,
 never a negative rate), :meth:`TSDB.histogram_quantile` over the fixed
 cumulative-``le`` buckets, and :func:`aggregate` (sum/avg/max) across
 label sets. :meth:`TSDB.dump`/:meth:`TSDB.load` snapshot the store as
-JSON.
+JSON — the replay surface ``dash --once --replay`` renders from.
 
 SCRAPER — :class:`ScrapeManager` polls N HTTP targets (a serving
 replica's ``/metrics``, Python control loops serving their registries
@@ -29,6 +29,22 @@ never an exception, and the loop never blocks past the wall. Every
 scrape synthesizes the self-metrics ``up``,
 ``tpuctl_scrape_duration_seconds`` and ``tpuctl_scrape_samples_total``
 into the TSDB (and the attached telemetry registry, when armed).
+
+LIVE SLO — :func:`live_slo_report` maps the ``slo.SLODef`` burn-rate
+rules onto scraped counter RATIOS: windowed bad/total increases of the
+code-labeled request counters become ``slo.SampleSource`` callables,
+evaluated by ``slo.evaluate_sources`` with the same multi-window
+verdicts and rc contract as the span-derived path. SLOs whose evidence
+has no live counter expression (watch-uptime, admission-latency: the
+registries export no good/bad split for them) report zero samples —
+visibly 'ok (no samples)', never silently green.
+
+DASH — :func:`render_dash` draws one deterministic terminal frame over
+the TSDB: per-target ``up``, request/error rates, p99 latency,
+sparklines, the serving panel (decoded tok/s, queue depth, the
+autoscaler's replicas), event counts. ``dash`` redraws it per interval;
+``--once --replay FILE`` renders a byte-exact frame from a dumped TSDB.
+The frame keeps the reference's ``tpuctl dash`` header.
 
 Concurrency: every lock here is LEAF-ONLY: ``TSDB._lock`` guards the
 series map and is never held across I/O, parsing or telemetry;
@@ -49,7 +65,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Deque, Dict, List, Mapping, \
     Optional, Sequence, Tuple
 
-from . import kubeapply, telemetry as _telemetry
+from . import kubeapply, slo as _slo, telemetry as _telemetry
 from .telemetry import LabelPairs
 
 # One exposition sample's identity: (metric name, sorted label pairs).
@@ -905,3 +921,199 @@ class MetricsServer:
     def __exit__(self, *exc: object) -> None:
         self.stop()
 
+
+# --------------------------------------------------------------------------
+# Live SLO: SLODef burn-rate rules over scraped counter ratios.
+
+# Request-counter families carrying a per-sample status ``code`` label,
+# in preference order: the client's own registry when scraped, else the
+# fake apiserver's audit. Good/bad classification is slo._is_bad_status
+# — the SAME taxonomy the span extractor applies, which is what makes
+# the live and trace-derived verdicts comparable at all.
+_LIVE_CODE_FAMILIES: Dict[str, Tuple[str, ...]] = {
+    "apply-availability": (_telemetry.REQUESTS_TOTAL,
+                           "fake_apiserver_requests_total"),
+}
+
+
+def _code_ratio_source(tsdb: TSDB, families: Sequence[str],
+                       now: Optional[float]) -> _slo.SampleSource:
+    # the evidence family is chosen ONCE per source, not per window:
+    # falling back per ratio() call could answer one verdict's short
+    # window from the server's counters and its long window from the
+    # client's — two vantages with different traffic mixes, AND-gated
+    # into a verdict neither consistent choice would produce
+    family = next((f for f in families if tsdb.has_series(f)), None)
+
+    def ratio(window_s: float) -> Tuple[float, float]:
+        if family is None:
+            return 0.0, 0.0
+        increases = tsdb.increase(family, window_s, now=now)
+        total = sum(increases.values())
+        if total <= 0:
+            return 0.0, 0.0
+        bad = sum(v for pairs, v in increases.items()
+                  if _slo._is_bad_status(dict(pairs).get("code")))
+        return bad, total
+    return ratio
+
+
+def live_slo_report(tsdb: TSDB,
+                    slos: Sequence[_slo.SLODef] = _slo.DEFAULT_SLOS,
+                    windows: Sequence[_slo.BurnWindow] =
+                    _slo.DEFAULT_WINDOWS,
+                    scale: Optional[float] = None,
+                    now: Optional[float] = None) -> _slo.SLOReport:
+    """The ``slo check --live`` evaluator: each SLO's burn-rate
+    rules over windowed bad/total ratios of the scraped code-labeled
+    request counters (``slo.evaluate_sources`` — the same verdict
+    math, report shape and rc contract as the span path). SLOs with no
+    live counter expression (watch-uptime, admission-latency) evaluate
+    with zero samples — 'ok (no samples)' in the report, visibly. The
+    default ``scale`` anchors the 1h page window onto the TSDB's
+    observed scrape span, exactly like the trace path anchors onto the
+    trace span."""
+    sources: Dict[str, _slo.SampleSource] = {}
+    for slo_def in slos:
+        families = _LIVE_CODE_FAMILIES.get(slo_def.name)
+        if families:
+            sources[slo_def.name] = _code_ratio_source(tsdb, families,
+                                                       now)
+    return _slo.evaluate_sources(sources, slos=slos, windows=windows,
+                                 scale=scale, span_s=tsdb.span_s())
+
+
+# --------------------------------------------------------------------------
+# Dashboard.
+
+_SPARK_LEVELS = "▁▂▃▄▅▆▇█"
+_DASH_SLOTS = 12
+
+
+def sparkline(values: Sequence[float]) -> str:
+    """Values -> one block character each, scaled to the series max
+    (an all-zero series is a flat floor — 'quiet', not 'missing')."""
+    if not values:
+        return ""
+    top = max(values)
+    if top <= 0:
+        return _SPARK_LEVELS[0] * len(values)
+    out: List[str] = []
+    for v in values:
+        idx = int((max(0.0, v) / top) * (len(_SPARK_LEVELS) - 1) + 0.5)
+        out.append(_SPARK_LEVELS[idx])
+    return "".join(out)
+
+
+def _slot_rates(tsdb: TSDB, family: str, job: str, window_s: float,
+                now: float) -> List[float]:
+    """Per-slot summed request rate over the window, oldest slot
+    first (the sparkline's input). ONE store fetch covers all 12
+    slots — the per-slot math (bounded window, capped baseline
+    lookback, reset-aware increase over the observed span) is the same
+    as :meth:`TSDB.rate`, computed locally on the single snapshot
+    instead of re-scanning the store per slot."""
+    slot = window_s / _DASH_SLOTS
+    fetch = tsdb.window(family, window_s + slot + tsdb.staleness_s,
+                        now=now, job=job)
+    out: List[float] = []
+    for i in range(_DASH_SLOTS):
+        slot_now = now - (_DASH_SLOTS - 1 - i) * slot
+        total = 0.0
+        for samples in fetch.values():
+            value = TSDB._slice_rate(TSDB._window_slice(
+                samples, slot_now - slot, slot_now, tsdb.staleness_s))
+            if value is not None:
+                total += value
+        out.append(total)
+    return out
+
+
+# Request-counter families a dash row tries in order (same preference
+# as the live SLO mapping).
+_DASH_REQUEST_FAMILIES = (_telemetry.REQUESTS_TOTAL,
+                          "fake_apiserver_requests_total")
+# Event-count families summed for the footer.
+_DASH_EVENT_FAMILIES = (_telemetry.EVENTS_EMITTED_TOTAL,
+                        "fake_apiserver_events_total")
+
+
+def render_dash(tsdb: TSDB, window_s: float = 60.0,
+                now: Optional[float] = None) -> str:
+    """One terminal frame over the TSDB: a row per scrape job (``up``,
+    summed request/error rates over the window, p99 request latency,
+    request-rate sparkline across the window's 12 slots) plus an event
+    footer. Deterministic for a fixed (tsdb, now) pair — the golden
+    replay pin renders from a dumped TSDB with a frozen clock."""
+    t = tsdb.now() if now is None else now
+    jobs = tsdb.label_values(_telemetry.UP, "job")
+    lines: List[str] = [
+        f"tpuctl dash — {len(jobs)} target(s), window {window_s:g}s",
+        f"{'JOB':<14} {'UP':>2} {'REQ/S':>8} {'ERR/S':>8} "
+        f"{'P99(MS)':>8}  {'REQUESTS ' + '·' * (_DASH_SLOTS - 9)}",
+    ]
+    for job in jobs:
+        up_vals = tsdb.latest(_telemetry.UP, now=t, job=job)
+        up = "1" if aggregate(up_vals, "max") > 0 else \
+            ("0" if up_vals else "?")
+        family = ""
+        rates: Dict[LabelPairs, float] = {}
+        for cand in _DASH_REQUEST_FAMILIES:
+            cand_rates = tsdb.rate(cand, window_s, now=t, job=job)
+            if cand_rates:
+                family, rates = cand, cand_rates
+                break
+        req = err = 0.0
+        spark = _SPARK_LEVELS[0] * _DASH_SLOTS
+        if family:
+            req = aggregate(rates, "sum")
+            err = aggregate(
+                {p: v for p, v in rates.items()
+                 if _slo._is_bad_status(dict(p).get("code"))}, "sum")
+            spark = sparkline(
+                _slot_rates(tsdb, family, job, window_s, t))
+        p99 = tsdb.histogram_quantile(
+            0.99, _telemetry.REQUEST_SECONDS, window_s=window_s,
+            now=t, job=job)
+        p99_text = f"{p99 * 1e3:8.1f}" if p99 is not None \
+            else f"{'-':>8}"
+        lines.append(f"{job:<14} {up:>2} {req:8.1f} {err:8.1f} "
+                     f"{p99_text}  {spark}")
+    # serving panel: fleet-wide decoded-token rate (sparkline summed
+    # across replicas), live queue depth, and the autoscaler's desired
+    # replica count — present only once the serving path has series
+    # (a batch-only cluster keeps the classic frame).
+    serving_jobs = tsdb.label_values(_telemetry.SERVING_TOKENS_TOTAL,
+                                     "job")
+    if serving_jobs or tsdb.has_series(_telemetry.AUTOSCALE_REPLICAS):
+        slots = [0.0] * _DASH_SLOTS
+        for job in serving_jobs:
+            for i, v in enumerate(_slot_rates(
+                    tsdb, _telemetry.SERVING_TOKENS_TOTAL, job,
+                    window_s, t)):
+                slots[i] += v
+        tok = aggregate(tsdb.rate(_telemetry.SERVING_TOKENS_TOTAL,
+                                  window_s, now=t), "sum")
+        queue = aggregate(tsdb.latest(_telemetry.SERVING_QUEUE_DEPTH,
+                                      now=t), "sum")
+        reps = tsdb.latest(_telemetry.AUTOSCALE_REPLICAS, now=t)
+        reps_text = str(int(round(aggregate(reps, "max")))) \
+            if reps else "-"
+        lines.append(f"serving ({window_s:g}s): tok/s {tok:.1f} "
+                     f"{sparkline(slots)} | queue {queue:g} | "
+                     f"replicas {reps_text}")
+    by_reason: Dict[str, float] = {}
+    for family in _DASH_EVENT_FAMILIES:
+        for pairs, inc in tsdb.increase(family, window_s,
+                                        now=t).items():
+            reason = dict(pairs).get("reason", "?")
+            if inc > 0:
+                by_reason[reason] = by_reason.get(reason, 0.0) + inc
+    if by_reason:
+        rendered = ", ".join(f"{reason} {int(round(count))}"
+                             for reason, count in
+                             sorted(by_reason.items()))
+        lines.append(f"events ({window_s:g}s): {rendered}")
+    else:
+        lines.append(f"events ({window_s:g}s): (none)")
+    return "\n".join(lines)

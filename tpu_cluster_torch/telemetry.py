@@ -32,8 +32,10 @@ leaves a post-mortem trace even when ``--trace-out`` wasn't passed.
 Names read by other processes keep the reference's spelling: the
 ``tpuctl_*`` client families, the ``tpu_serving_*`` families the
 autoscaler reads, :data:`OPERATOR_METRIC_NAMES` (the native operator's
-``/metrics`` contract) and :data:`TRACEPARENT_ANNOTATION`. The trace
-readers (summary, schema check, merge) are not part of this module yet.
+``/metrics`` contract), :data:`OPERATOR_TRACE_EVENTS` (the slice names
+its trace emitter writes) and :data:`TRACEPARENT_ANNOTATION`. The trace
+readers close the module: :func:`summarize_trace` (``top``),
+:func:`validate_chrome_trace` and :func:`merge_traces` (``trace``).
 
 Every lock in this module is leaf-only: nothing is acquired while one
 is held.
@@ -46,7 +48,8 @@ import os
 import random
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import (Any, Dict, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 # --------------------------------------------------------------------------
 # Pinned metric names.
@@ -70,6 +73,22 @@ OPERATOR_METRIC_NAMES: Tuple[str, ...] = (
     "tpu_operator_workqueue_adds_total",
     "tpu_operator_workqueue_retries_total",
     "tpu_operator_workqueue_depth",
+)
+
+# Chrome trace-event slice names the C++ operator's trace emitter must
+# use (kubeapi::OperatorTraceEventNames(), native/operator/kubeapi.cc) —
+# pinned the same three ways as OPERATOR_METRIC_NAMES: selftest.cc pins
+# the C++ table compiler-only, tests/test_telemetry.py source-greps the
+# equality, and CI greps the operator's emitted trace artifact for them.
+# A rename lands on these pins before it lands on a broken merged
+# timeline.
+OPERATOR_TRACE_EVENTS: Tuple[str, ...] = (
+    "reconcile-pass",   # one full ReconcilePass (apply + gates + status)
+    "apply-object",     # one bundle object through ApplyObject
+    "ready-wait",       # one stage's readiness gate
+    "watch-sleep",      # one event-driven sleep holding watch streams
+    "drift-event",      # instant: a watch event that triggers reconcile
+    "reconcile-object", # one workqueue key through Reconcile(key)
 )
 
 # The Python client/rollout family names (one place so instrumentation
@@ -341,6 +360,10 @@ class Histogram:
             self.sum += v
             self.count += 1
 
+    def cumulative(self) -> List[int]:
+        """Cumulative per-bucket counts, ``le`` encoding (last == count)."""
+        return self.snapshot()[0]
+
     def snapshot(self) -> Tuple[List[int], float]:
         """(cumulative bucket counts, sum) read under ONE lock hold, so
         a concurrent observe() cannot skew the rendered sum against the
@@ -423,6 +446,30 @@ class MetricsRegistry:
         assert isinstance(child, Histogram)
         return child
 
+    def total(self, name: str, **label_filter: str) -> float:
+        """Sum of a family's children values (counters/gauges; histograms
+        contribute their observation COUNT), restricted to children whose
+        labels include every ``label_filter`` pair. 0.0 for an absent
+        family — assertions read totals without creating families."""
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                return 0.0
+            children = list(fam.series.items())
+        want = set(label_filter.items())
+        out = 0.0
+        for key, child in children:
+            if not want <= set(key):
+                continue
+            if isinstance(child, Histogram):
+                # observation count under the histogram's own lock —
+                # totals race with concurrent observe() otherwise
+                with child._lock:
+                    out += child.count
+            else:
+                out += float(child.value)
+        return out
+
     def render(self) -> str:
         """Prometheus text exposition format, families and children in
         sorted order (byte-stable across runs with equal contents)."""
@@ -495,6 +542,12 @@ class MetricsRegistry:
                 else:
                     out[(name, key)] = float(fmt_value(child.value))
         return out
+
+    def family_types(self) -> Dict[str, str]:
+        """{family name: counter|gauge|histogram} — the ``# TYPE`` lines
+        render() emits, for the parser parity pin."""
+        with self._lock:
+            return {name: fam.mtype for name, fam in self._families.items()}
 
 
 # --------------------------------------------------------------------------
@@ -981,3 +1034,169 @@ def request_events(trace: Dict[str, Any]) -> List[Dict[str, Any]]:
     return [e for e in _complete_events(trace) if e.get("cat") == "http"]
 
 
+def summarize_trace(trace: Dict[str, Any], limit: int = 10) -> str:
+    """Human breakdown of a saved rollout trace: per-phase totals,
+    request counts by verb/status, retry marks, and the slowest object /
+    request spans — the `tpuctl top` renderer. Merged multi-process
+    traces (`tpuctl trace merge`) list their per-process tracks first."""
+    complete = _complete_events(trace)
+    if not complete:
+        raise ValueError("trace has no complete (ph=X) span events")
+    lines: List[str] = []
+    processes = {e.get("pid"): e.get("args", {}).get("name", "?")
+                 for e in trace.get("traceEvents", [])
+                 if isinstance(e, dict) and e.get("ph") == "M"
+                 and e.get("name") == "process_name"}
+    if processes:
+        by_pid: Dict[Any, int] = {}
+        for e in complete:
+            by_pid[e.get("pid")] = by_pid.get(e.get("pid"), 0) + 1
+        lines.append("processes (merged trace):")
+        for pid, name in sorted(processes.items(),
+                                key=lambda kv: str(kv[0])):
+            lines.append(f"  pid {pid}: {name} "
+                         f"({by_pid.get(pid, 0)} span(s))")
+        lines.append("")
+    rollouts = [e for e in complete if e.get("cat") == "rollout"]
+    for r in rollouts:
+        lines.append(f"rollout: {r.get('dur', 0.0) / 1e6:.3f}s "
+                     f"({json.dumps(r.get('args', {}), sort_keys=True)})")
+    lines.append("")
+    lines.append("phase breakdown (summed across groups):")
+    for name, secs in phase_totals(trace).items():
+        lines.append(f"  {name:<14} {secs:8.3f}s")
+    reqs = request_events(trace)
+    by_verb: Dict[str, int] = {}
+    by_status: Dict[str, int] = {}
+    for e in reqs:
+        args = e.get("args", {})
+        verb = str(args.get("verb", "?"))
+        by_verb[verb] = by_verb.get(verb, 0) + 1
+        status = str(args.get("status", "?"))
+        by_status[status] = by_status.get(status, 0) + 1
+    lines.append("")
+    verb_text = ", ".join(f"{v} {n}" for v, n in sorted(by_verb.items()))
+    status_text = ", ".join(
+        f"{s}: {n}" for s, n in sorted(by_status.items()))
+    lines.append(f"requests: {len(reqs)} ({verb_text})")
+    lines.append(f"  by status: {status_text}")
+    instants = [e for e in trace["traceEvents"]
+                if isinstance(e, dict) and e.get("ph") == "i"]
+    retries = [e for e in instants if e.get("name") == "retry"]
+    if retries:
+        lines.append(f"  retries: {len(retries)} "
+                     "(see instant events in the trace)")
+    if instants:
+        # instant events (retry/hedge/chaos marks, admission results)
+        # are the trace's "what happened" annotations — a summary that
+        # drops them hides exactly the interesting runs
+        by_name: Dict[str, int] = {}
+        for e in instants:
+            n = str(e.get("name", "?"))
+            by_name[n] = by_name.get(n, 0) + 1
+        lines.append("")
+        lines.append("instant events (by name):")
+        for n, count in sorted(by_name.items()):
+            lines.append(f"  {n:<22} {count:6d}")
+    lines.append("")
+    lines.append(f"slowest spans (top {limit}):")
+    interesting = [e for e in complete
+                   if e.get("cat") in ("apply", "http", "watch", "group")]
+    interesting.sort(key=lambda e: -float(e.get("dur", 0.0)))
+    for e in interesting[:limit]:
+        status = e.get("args", {}).get("status", "")
+        suffix = f"  [{status}]" if status != "" else ""
+        lines.append(f"  {float(e.get('dur', 0.0)) / 1e6:8.3f}s  "
+                     f"{e.get('cat', '?'):<6} {e.get('name', '?')}{suffix}")
+    return "\n".join(lines)
+
+
+# --------------------------------------------------------------------------
+# Multi-process trace assembly (`tpuctl trace merge`) + schema validation.
+
+
+def validate_chrome_trace(trace: Any) -> int:
+    """Validate a document against the Chrome trace-event JSON object
+    format (the subset every producer in this repo emits): a dict with a
+    ``traceEvents`` list of event dicts, each carrying string ``name`` /
+    ``ph`` and numeric ``ts``; ``X`` events need a numeric non-negative
+    ``dur``; ``pid``/``tid`` must be ints where present. Raises
+    ValueError naming the first offending event; returns the event count
+    (the CI artifact gate calls this on the merged file)."""
+    events = _complete_events(trace)  # raises on non-dict / no traceEvents
+    all_events = trace["traceEvents"]
+    for i, e in enumerate(all_events):
+        if not isinstance(e, dict):
+            raise ValueError(f"traceEvents[{i}] is not an object")
+        where = f"traceEvents[{i}] ({e.get('name')!r})"
+        if not isinstance(e.get("name"), str):
+            raise ValueError(f"{where}: name is not a string")
+        if not isinstance(e.get("ph"), str) or not e["ph"]:
+            raise ValueError(f"{where}: ph is not a string")
+        if not isinstance(e.get("ts"), (int, float)):
+            raise ValueError(f"{where}: ts is not a number")
+        for key in ("pid", "tid"):
+            if key in e and not isinstance(e[key], int):
+                raise ValueError(f"{where}: {key} is not an int")
+        if e["ph"] == "X":
+            dur = e.get("dur")
+            if not isinstance(dur, (int, float)) or dur < 0:
+                raise ValueError(f"{where}: X event without a "
+                                 "non-negative numeric dur")
+        if "args" in e and not isinstance(e["args"], dict):
+            raise ValueError(f"{where}: args is not an object")
+    return len(events)
+
+
+def merge_traces(docs: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """Assemble several single-process Chrome traces (the CLI's
+    ``--trace-out``, the fake apiserver's ``/__fake_trace``, the C++
+    operator's ``--trace-out``) into ONE Perfetto timeline:
+
+    - each input becomes its own process track (pid = input index + 1)
+      named by its ``otherData.producer`` via a ``process_name`` metadata
+      event;
+    - timelines are aligned on the producers' ``otherData.epoch`` anchors
+      (each trace's ts values are offsets from its own start): everything
+      is shifted onto the EARLIEST epoch so "what was the server doing
+      while the CLI retried" reads straight off the time axis;
+    - trace ids are NOT rewritten — correlation is the ids' job
+      (``args.trace_id`` / ``args.span_id`` / ``args.parent_id``), and
+      ``otherData.trace_ids`` lists every input's primary id.
+    """
+    if not docs:
+        raise ValueError("merge_traces: no input traces")
+    epochs: List[float] = []
+    for doc in docs:
+        other = doc.get("otherData") or {}
+        epochs.append(float(other.get("epoch") or 0.0))
+    known = [e for e in epochs if e > 0]
+    base = min(known) if known else 0.0
+    out_events: List[Dict[str, Any]] = []
+    producers: List[str] = []
+    trace_ids: List[str] = []
+    for i, doc in enumerate(docs):
+        pid = i + 1
+        other = doc.get("otherData") or {}
+        producer = str(other.get("producer") or f"process-{pid}")
+        producers.append(producer)
+        tid = str(other.get("trace_id") or "")
+        if tid:
+            trace_ids.append(tid)
+        shift_us = ((epochs[i] - base) * 1e6
+                    if epochs[i] > 0 and base > 0 else 0.0)
+        out_events.append({"name": "process_name", "ph": "M", "pid": pid,
+                           "tid": 0, "ts": 0,
+                           "args": {"name": producer}})
+        validate_chrome_trace(doc)
+        for e in doc["traceEvents"]:
+            ev = dict(e)
+            ev["pid"] = pid
+            ev["ts"] = round(float(e.get("ts", 0.0)) + shift_us, 1)
+            out_events.append(ev)
+    out_events.sort(key=lambda e: (e.get("ph") != "M", e.get("ts", 0.0)))
+    return {"traceEvents": out_events, "displayTimeUnit": "ms",
+            "otherData": {"producer": "tpuctl trace merge",
+                          "merged_from": producers,
+                          "trace_ids": sorted(set(trace_ids)),
+                          "epoch": base}}

@@ -1,0 +1,4 @@
+"""Saturated serving: a queue kept full from before the window to its
+end (``portbench.serve``, a ``saturated`` traffic mix)."""
+
+from portbench.serve import run  # noqa: F401

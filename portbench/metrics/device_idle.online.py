@@ -1,0 +1,7 @@
+"""Device idle share in the online cells (see ``_device_idle``)."""
+
+from portbench.metrics._device_idle import read_kind
+
+
+def read(rec):
+    return read_kind(rec, "serve", "open")

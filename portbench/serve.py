@@ -1,0 +1,260 @@
+"""Serving cells: the port's ``InferenceEngine`` with its own thread
+running, fed through ``submit`` by the benchmark's traffic.
+
+Set-up builds the engine at the cell's widths (it draws its own bf16
+weights), warms it with one request of several decode iterations (eager
+torch pays first-call costs over the first three), and brings the
+traffic to its steady state before the window opens. The window is
+host-clock time; the engine's stamps (``time.monotonic``) time each
+request. Afterwards the plain reference judges a sample, drawn from the
+seed, of the requests the window served, the longest among them: the
+widest gap by which a served token's logit lies below the reference's
+best at its position.
+"""
+
+from __future__ import annotations
+
+import gc
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from portbench import harness, traffic
+from portbench.reference import engine_weights
+from portbench.reference import model as ref
+from portbench.trace import profiled, reduce, window_span
+
+
+def program():
+    from tpu_cluster_torch import telemetry
+    from tpu_cluster_torch.workloads import serving
+    return serving, telemetry
+
+
+def engine_config(cell: harness.Cell):
+    serving, _ = program()
+    m, e, t = cell.model, cell.spec["engine"], cell.traffic
+    return serving.ServingConfig(
+        vocab=m["vocab"], d_model=m["d_model"], d_ff=m["d_ff"],
+        n_heads=m["n_heads"], seq=e["seq"], slots=e["slots"],
+        max_new_tokens=t["output"]["max"], default_deadline_s=t["deadline_s"],
+        max_queue=e["max_queue"])
+
+
+def start_engine(cell: harness.Cell, device: torch.device, warm_prompt):
+    """A started engine that has run the warm-up request."""
+    serving, telemetry = program()
+    eng = serving.InferenceEngine(engine_config(cell),
+                                  telemetry=telemetry.Telemetry(),
+                                  device=device).start()
+    warm = eng.submit(warm_prompt, max_new_tokens=cell.traffic["warm_tokens"],
+                      deadline_s=600.0)
+    if not warm.done.wait(600.0) or warm.status != "ok":
+        eng.stop()
+        raise RuntimeError(f"warm-up request ended {warm.status or 'unfinished'}")
+    return eng
+
+
+@dataclass
+class Sent:
+    due: float
+    req: Any
+
+
+class Sender(threading.Thread):
+    """Sends the plan: open, each request when due (``t_base + at``);
+    saturated, whenever fewer than ``depth`` requests wait."""
+
+    def __init__(self, eng, plan: List[traffic.Planned], deadline_s: float,
+                 t_base: float = 0.0, depth: int = 0) -> None:
+        super().__init__(daemon=True, name="portbench-sender")
+        self.eng, self.plan, self.deadline_s = eng, plan, deadline_s
+        self.t_base, self.depth = t_base, depth
+        self.sent: List[Sent] = []
+        self.stop = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.exhausted_at: Optional[float] = None
+
+    def _send(self, item: traffic.Planned, due: float) -> None:
+        req = self.eng.submit(item.prompt, max_new_tokens=item.max_new,
+                              deadline_s=self.deadline_s)
+        self.sent.append(Sent(due, req))
+
+    def run(self) -> None:
+        try:
+            for item in self.plan:
+                if self.depth:
+                    while self.eng.queue_depth() >= self.depth:
+                        if self.stop.wait(0.002):
+                            return
+                    self._send(item, time.monotonic())
+                else:
+                    due = self.t_base + item.at
+                    wait = due - time.monotonic()
+                    if self.stop.wait(max(0.0, wait)):
+                        return
+                    self._send(item, due)
+            self.exhausted_at = time.monotonic()
+        except BaseException as exc:  # reported by the main thread
+            self.error = exc
+
+
+def _snapshot(eng, sender: Sender) -> Dict[str, Any]:
+    return {"decoded": eng.decoded_tokens,
+            "iterations": len(eng._occupancy_samples),
+            "tokens": {id(s.req): len(s.req.tokens) for s in list(sender.sent)}}
+
+
+def _request_row(s: Sent) -> Dict[str, Any]:
+    r = s.req
+    return {"due": s.due, "submitted": r.submitted, "admitted": r.admitted_ts,
+            "first": r.first_token_ts, "finished": r.finished_ts,
+            "status": r.status, "tokens": len(r.tokens),
+            "prompt": len(r.prompt)}
+
+
+def sample(served: List[Sent], seed: int, k: int) -> List[Sent]:
+    """``k`` requests drawn from ``seed``, the one with the most served
+    tokens among them."""
+    if not served:
+        return []
+    longest = max(served, key=lambda s: len(s.req.tokens))
+    rest = [s for s in served if s is not longest]
+    rng = np.random.default_rng(int(seed) ^ 0xC4EC)
+    pick = rng.choice(len(rest), size=min(k - 1, len(rest)), replace=False)
+    return [longest] + [rest[i] for i in sorted(pick)]
+
+
+def gaps(cell: harness.Cell, device: torch.device,
+         sequences: List[Tuple[Tuple[int, ...], List[int]]],
+         control: bool = False) -> Dict[str, List[float]]:
+    """Per sequence (prompt, served tokens): the widest gap by which a
+    served token's reference logit lies below the reference's best at
+    its position; with ``control``, the same for the token the fp8
+    reference puts first."""
+    ref.pin_precision()
+    m = cell.model
+    params = engine_weights.engine_params(m["d_model"], m["d_ff"], m["vocab"],
+                                          device)
+    out: Dict[str, List[float]] = {"served": [], "control": []}
+    with torch.no_grad():
+        for prompt, served in sequences:
+            ids = torch.tensor([list(prompt) + served[:-1]], device=device)
+            rows = range(len(prompt) - 1, len(prompt) - 1 + len(served))
+            lg = ref.logits(params, ids, m["n_heads"], "f32", rows)
+            best = lg.amax(-1)
+            got = torch.tensor(served, device=device)
+            out["served"].append(float((best - lg.gather(
+                -1, got[:, None])[:, 0]).max()))
+            if control:
+                pick = ref.logits(params, ids, m["n_heads"], "fp8",
+                                  rows).argmax(-1)
+                out["control"].append(float((best - lg.gather(
+                    -1, pick[:, None])[:, 0]).max()))
+    return out
+
+
+def run(cell: harness.Cell, device: torch.device, started: float):
+    mix = cell.traffic
+    saturated = mix["kind"] == "saturated"
+    plan = traffic.plan(mix, cell.seed, cell.seconds, cell.model["vocab"],
+                        cell.spec["engine"]["seq"])
+    eng = start_engine(cell, device, plan[0].prompt)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    if saturated:
+        sender = Sender(eng, plan, mix["deadline_s"], depth=mix["queue_depth"])
+    else:
+        sender = Sender(eng, plan, mix["deadline_s"])
+    try:
+        # the profiler starts before the traffic and stops once the
+        # judged requests are done: its start and stop stall the engine
+        # for a moment, which no judged request may meet
+        with profiled(cell.trace) as prof:
+            sender.t_base = time.monotonic() + 0.05
+            sender.start()
+            if saturated:
+                slots = cell.spec["engine"]["slots"]
+                # the window opens once every slot is seated, the queue full
+                while not (eng._occupancy_samples[-2:] == [slots, slots]
+                           and eng.queue_depth() >= mix["queue_depth"]):
+                    time.sleep(0.01)
+                    if sender.error is not None:
+                        raise sender.error
+                t0 = time.monotonic()
+            else:
+                t0 = sender.t_base + mix["arrivals"]["lead_in_s"]
+            time.sleep(max(0.0, t0 - time.monotonic()))
+            with window_span():
+                t0 = time.monotonic()
+                setup_s = time.perf_counter() - started
+                before = _snapshot(eng, sender)
+                time.sleep(cell.seconds)
+                after = _snapshot(eng, sender)
+                t1 = time.monotonic()
+            if saturated:
+                judged = [s for s in list(sender.sent) if s.req.finished_ts
+                          is not None and t0 <= s.req.finished_ts <= t1]
+            else:
+                judged = [s for s in list(sender.sent) if t0 <= s.due < t1]
+                # the window's last requests finish under the same load
+                drain_until = time.monotonic() + mix["drain_s"]
+                while time.monotonic() < drain_until and not all(
+                        s.req.done.is_set() for s in judged):
+                    if sender.error is not None:
+                        raise sender.error
+                    time.sleep(0.01)
+        occupancy = eng._occupancy_samples[before["iterations"]:
+                                           after["iterations"]]
+        dev_trace = reduce(prof) if prof is not None else None
+    finally:
+        sender.stop.set()
+        sender.join(timeout=10)
+        eng.stop()
+    if sender.error is not None:
+        raise sender.error
+    if sender.exhausted_at is not None and sender.exhausted_at < t1:
+        raise RuntimeError("the traffic plan ran out before the window closed")
+    peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+            else 0)
+
+    window_ctx: List[int] = []
+    for s in list(sender.sent):
+        n0 = before["tokens"].get(id(s.req), 0)
+        n1 = after["tokens"].get(id(s.req), 0)
+        window_ctx.extend(len(s.req.prompt) + i for i in range(n0, n1))
+    rows = [_request_row(s) for s in judged]
+    unanswered = sum(1 for s in judged if not s.req.done.is_set())
+    served = [s for s in judged if s.req.tokens]
+    picked = sample(served, cell.seed, mix["check_requests"])
+    sequences = [(s.req.prompt, list(s.req.tokens)) for s in picked]
+    del eng
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    served_gap = max(gaps(cell, device, sequences)["served"], default=0.0)
+    checks = harness.judge({"served_gap": served_gap,
+                            "unanswered": float(unanswered)}, cell.limits)
+    m = cell.model
+    rec = {
+        "kind": "serve", "mode": mix["kind"], "setup_s": setup_s,
+        "window_s": t1 - t0, "judged": rows,
+        "window_ctx": window_ctx,
+        "decoded_in_window": after["decoded"] - before["decoded"],
+        "occupancy": occupancy,
+        "slots": cell.spec["engine"]["slots"],
+        "model": m, "trace": dev_trace,
+    }
+    failed = sum(1 for r in rows if r["status"] != "ok")
+    lateness = [r["submitted"] - r["due"] for r in rows]
+    return {"record": rec, "checks": checks,
+            "correct": harness.passed(checks) and bool(sequences),
+            "attempted": len(rows), "failed": failed, "memory_peak": peak,
+            "trace": dev_trace,
+            "notes": {"generator_late_max_s": max(lateness, default=0.0),
+                      "checked_requests": len(sequences),
+                      "checked_tokens": sum(len(t) for _, t in sequences)}}

@@ -91,6 +91,32 @@ OPERATOR_TRACE_EVENTS: Tuple[str, ...] = (
     "reconcile-object", # one workqueue key through Reconcile(key)
 )
 
+# Span names of the serving engine (workloads/serving.py), in the order
+# one decoding step opens them; a step that seats no slot opens the first
+# three alone, and run() then waits for work in ``serving.park``, a root
+# of its own. Sites and the readers of a traced run take the names from
+# here.
+SERVING_SPANS: Tuple[str, ...] = (
+    "serving.iteration",  # root: one step(); args seated (0: no decode),
+                          # admitted, evicted
+    "serving.admit",      # deadline drops and prompt writes
+    "serving.gauges",     # the engine's gauges
+    "serving.upload",     # host->device copy of the tokens and positions
+    "serving.dispatch",   # inference mode, forward, row gather, argmax:
+                          # launched, not run
+    "serving.sync",       # the copy back, which waits for the device
+    "serving.emit",       # duty samples, token append, evictions, counters
+    "serving.park",       # root: the wait for work with no slot seated
+)
+
+# Span names of one training step (workloads/burnin.py): the root, then
+# its two children.
+TRAIN_SPANS: Tuple[str, ...] = (
+    "train.step",
+    "train.loss_and_grads",
+    "train.sgd_update",
+)
+
 # The Python client/rollout family names (one place so instrumentation
 # sites and assertions cannot drift on spelling).
 REQUESTS_TOTAL = "tpuctl_requests_total"
@@ -662,6 +688,10 @@ class Tracer:
         # epoch anchor so two traces (or a trace and a server log) can be
         # aligned on wall-clock time
         self.epoch = time.time()
+        # (time.time_ns(), time.monotonic_ns()) read together: what
+        # wall_ns() converts span offsets with (reanchor())
+        self.anchor: Tuple[int, int] = (0, 0)
+        self.reanchor()
         # one trace id per tracer: every traceparent this process sends
         # (and every annotation it stamps) carries it, which is what lets
         # `tpuctl trace merge` correlate three processes' timelines
@@ -681,6 +711,29 @@ class Tracer:
         self.lock: Any = threading.Lock()
         self.roots: List[Span] = []  # guarded-by: lock
         self._tls = threading.local()  # thread-owned (per-thread stack)
+
+    # ---------------------------------------------------------- clock
+
+    def reanchor(self) -> None:
+        """Pair the wall clock with the monotonic one anew: the tightest
+        of three back-to-back reads, the wall read against the midpoint of
+        the two monotonic reads around it. Call it near the spans to be
+        converted, so that the wall clock's slew since cannot move them."""
+        best = None
+        for _ in range(3):
+            m0 = time.monotonic_ns()
+            wall = time.time_ns()
+            m1 = time.monotonic_ns()
+            if best is None or m1 - m0 < best[0]:
+                best = (m1 - m0, wall, (m0 + m1) // 2)
+        self.anchor = (best[1], best[2])
+
+    def wall_ns(self, offset_s: float) -> int:
+        """A span offset (seconds after ``t0``, as ``Span.start_s`` and
+        ``end_s``) on ``time.time_ns()``'s clock, the one the torch
+        profiler stamps its events with."""
+        wall, mono = self.anchor
+        return wall + round((self.t0 + offset_s) * 1e9) - mono
 
     # ---------------------------------------------------- span lifecycle
 

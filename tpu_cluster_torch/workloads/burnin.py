@@ -42,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 from torch.utils.flop_counter import FlopCounterMode
 
+from .. import telemetry as _telemetry
 from . import runtime_metrics, timing
 from .tensor_parallel import (ModelAxis, copy_to_model, embed_lookup,
                               reduce_from_model, vocab_parallel_xent)
@@ -52,6 +53,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 DeviceLike = Union[str, torch.device, None]
+
+_STEP, _LOSS_AND_GRADS, _SGD_UPDATE = _telemetry.TRAIN_SPANS
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
@@ -401,15 +404,23 @@ def loss_and_grads(params: Dict[str, torch.Tensor],
 
 def train_step(params: Dict[str, torch.Tensor],
                batch: Tuple[torch.Tensor, torch.Tensor],
-               cfg: BurninConfig
+               cfg: BurninConfig,
+               telemetry: Optional[_telemetry.Telemetry] = None
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """One plain-SGD step, ``p - lr * g`` for every parameter
     (``burnin.py:321-324``): returns ``(new_params, loss)`` with new
     tensors; ``params`` are not modified. Each update is computed in f32
     and rounded once to the parameter's dtype (for bf16 parameters, the
-    single rounding XLA's fused update gives the reference)."""
-    loss, grads = loss_and_grads(params, batch, cfg)
-    return sgd_update(params, grads, cfg.lr), loss
+    single rounding XLA's fused update gives the reference). With
+    ``telemetry``, the step and its two parts are spans
+    (``telemetry.TRAIN_SPANS``); they time the host's launches, which run
+    ahead of the device."""
+    with _telemetry.maybe_span(telemetry, _STEP, "train"):
+        with _telemetry.maybe_span(telemetry, _LOSS_AND_GRADS, "train"):
+            loss, grads = loss_and_grads(params, batch, cfg)
+        with _telemetry.maybe_span(telemetry, _SGD_UPDATE, "train"):
+            new = sgd_update(params, grads, cfg.lr)
+    return new, loss
 
 
 def sgd_update(params: Dict[str, torch.Tensor],

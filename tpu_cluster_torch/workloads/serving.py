@@ -25,6 +25,16 @@ slot-based continuous-batching decode loop (the Orca scheduling shape):
   :class:`runtime_metrics.DutyCycleSampler` marking the decode
   dispatch..sync regions, served by ``metricsdb.MetricsServer``.
 
+- **Spans**, armed by ``spans=True``: one ``serving.iteration`` root a
+  step, with a child for each part of the host's turn and of the
+  decode (``telemetry.SERVING_SPANS``), and ``serving.park`` for the wait
+  for work, on the engine's own :class:`telemetry.Telemetry`. Off, no
+  span is built. A long-running server arms them with
+  ``Telemetry(retain_spans=False, recorder=FlightRecorder(path))``: the
+  last 256 spans stay readable by ``tpuctl top`` and Perfetto, and the
+  memory they take stays bounded. ``Tracer.wall_ns`` puts their offsets
+  on the torch profiler's clock.
+
 The stdlib HTTP frontend (:class:`ServingServer`) exposes
 ``POST /v1/generate`` with per-request ``deadline_s`` and a
 ``/healthz`` probe; handler threads block on the request's completion
@@ -65,6 +75,9 @@ STATUS_REJECTED = "rejected"
 EVICT_DONE = "done"
 EVICT_DEADLINE = "deadline"
 
+(_ITERATION, _ADMIT, _GAUGES, _UPLOAD, _DISPATCH, _SYNC, _EMIT,
+ _PARK) = _telemetry.SERVING_SPANS
+
 
 @dataclass(frozen=True)
 class ServingConfig:
@@ -90,12 +103,14 @@ class ServingConfig:
     static_batching: bool = False
 
 
-def make_decode(mcfg: burnin.BurninConfig,
-                device: torch.device) -> Callable[..., np.ndarray]:
+def make_decode(mcfg: burnin.BurninConfig, device: torch.device,
+                telemetry: Optional[_telemetry.Telemetry] = None
+                ) -> Callable[..., np.ndarray]:
     """The one-iteration decode function ``decode(params, tokens, pos)``:
     greedy next token per slot at each slot's own position, from the
     ``[slots, seq]`` int32 host token buffer and the ``[slots]`` positions;
-    returns the ``[slots]`` int32 next ids on the host.
+    returns the ``[slots]`` int32 next ids on the host. With
+    ``telemetry``, its upload, dispatch and sync are spans.
 
     Causal attention means positions > pos cannot leak into the logits at
     pos, so pad tokens in the buffer tail are inert and every slot decodes
@@ -104,15 +119,19 @@ def make_decode(mcfg: burnin.BurninConfig,
 
     def decode(params: Dict[str, torch.Tensor], tokens: np.ndarray,
                pos: np.ndarray) -> np.ndarray:
-        # grad mode is thread-local: enter inference mode on the thread
-        # that runs the decode (the engine thread)
-        with torch.inference_mode():
+        with _telemetry.maybe_span(telemetry, _UPLOAD, "serving"):
             toks = torch.from_numpy(tokens).to(device)
             at = torch.from_numpy(pos).to(device=device, dtype=torch.long)
-            logits = burnin.forward(params, toks, mcfg)
-            last = logits[torch.arange(logits.shape[0], device=device), at]
-            next_ids = torch.argmax(last, dim=-1).to(torch.int32)
-            # the device-to-host copy is the iteration's sync
+        with _telemetry.maybe_span(telemetry, _DISPATCH, "serving"):
+            # grad mode is thread-local: enter inference mode on the
+            # thread that runs the decode (the engine thread)
+            with torch.inference_mode():
+                logits = burnin.forward(params, toks, mcfg)
+                last = logits[torch.arange(logits.shape[0], device=device),
+                              at]
+                next_ids = torch.argmax(last, dim=-1).to(torch.int32)
+        # the device-to-host copy is the iteration's sync
+        with _telemetry.maybe_span(telemetry, _SYNC, "serving"):
             return next_ids.cpu().numpy()
 
     return decode
@@ -144,15 +163,24 @@ class InferenceEngine:
     thread or directly by tests/bench. All model state (params, token
     buffer, slot table) is engine-thread-owned; the queue is the only
     shared structure.
+
+    ``spans=True`` records the engine's spans on ``telemetry``
+    (``telemetry.SERVING_SPANS``); off, no span is built.
     """
 
     def __init__(self, cfg: ServingConfig = ServingConfig(),
                  telemetry: Optional[_telemetry.Telemetry] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 device: burnin.DeviceLike = None) -> None:
+                 device: burnin.DeviceLike = None,
+                 spans: bool = False) -> None:
+        if spans and telemetry is None:
+            raise ValueError("spans=True records on telemetry: pass one")
         self.cfg = cfg
         self.device = burnin.resolve_device(device)
         self.telemetry = telemetry
+        # where spans go: the telemetry when armed, else None (every site
+        # then takes maybe_span's no-op scope)
+        self._spans = telemetry if spans else None
         self._clock = clock
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
@@ -196,7 +224,10 @@ class InferenceEngine:
         params = burnin.init_params(mcfg, gen, self.device)
         self._tokens_host = np.zeros((self.cfg.slots, self.cfg.seq),
                                      dtype=np.int32)
-        self._model = (params, make_decode(mcfg, self.device), np)
+        # spans off, the call is make_decode(mcfg, device) as it always
+        # was: a stand-in decode with that signature still fits
+        armed = {} if self._spans is None else {"telemetry": self._spans}
+        self._model = (params, make_decode(mcfg, self.device, **armed), np)
         return self._model
 
     # ------------------------------------------------------------ ingress
@@ -302,22 +333,24 @@ class InferenceEngine:
                           phase="decode"
                           ).observe(max(0.0, end - req.first_token_ts))
 
-    def _admit(self, now: float) -> None:
+    def _admit(self, now: float) -> int:
         """Iteration-level admission: drop expired queue entries, then
-        prefill queued requests into free slots. The static control arm
-        only admits into an EMPTY batch (the barrier)."""
+        prefill queued requests into free slots; returns how many were
+        seated. The static control arm only admits into an EMPTY batch
+        (the barrier)."""
+        admitted = 0
         if self.cfg.static_batching and self._active() > 0:
-            return
+            return admitted
         while True:
             free = [i for i, r in enumerate(self._slot_req) if r is None]
             if not free:
-                return
+                return admitted
             with self._lock:
                 req = self._queue.popleft() if self._queue else None
                 if req is not None:
                     self._queued -= 1
             if req is None:
-                return
+                return admitted
             if now > req.deadline:
                 req.status = STATUS_DEADLINE
                 req.finished_ts = now
@@ -335,23 +368,43 @@ class InferenceEngine:
             self._slot_pos[slot] = len(req.prompt) - 1
             req.admitted_ts = now
             self._slot_req[slot] = req
+            admitted += 1
 
     def step(self) -> int:
         """One decode iteration: admission, one forward over the
         slot buffer, per-slot token append + mid-batch eviction.
         Returns the number of active slots decoded (0 = idle)."""
         params, fn, np_mod = self._ensure_model()
-        now = self._clock()
-        self._admit(now)
-        active = [i for i, r in enumerate(self._slot_req) if r is not None]
-        self._publish_gauges(len(active))
-        if not active:
-            return 0
-        pos = np_mod.asarray(self._slot_pos, dtype=np_mod.int32)
-        with runtime_metrics.device_busy():
-            t0 = time.monotonic()
-            next_ids = np_mod.asarray(fn(params, self._tokens_host, pos))
-            self._duty.add_busy(time.monotonic() - t0)
+        spans = self._spans
+        with _telemetry.maybe_span(spans, _ITERATION,
+                                   "serving") as iteration:
+            with _telemetry.maybe_span(spans, _ADMIT, "serving"):
+                admitted = self._admit(self._clock())
+            active = [i for i, r in enumerate(self._slot_req)
+                      if r is not None]
+            with _telemetry.maybe_span(spans, _GAUGES, "serving"):
+                self._publish_gauges(len(active))
+            evicted = 0
+            if active:
+                pos = np_mod.asarray(self._slot_pos, dtype=np_mod.int32)
+                # dispatch..sync, one measurement for both duty samplers
+                t0 = time.monotonic()
+                next_ids = np_mod.asarray(fn(params, self._tokens_host, pos))
+                busy = time.monotonic() - t0
+                with _telemetry.maybe_span(spans, _EMIT, "serving"):
+                    self._duty.add_busy(busy)
+                    runtime_metrics.add_busy(busy)
+                    evicted = self._emit(active, next_ids)
+            if iteration is not None:
+                iteration.annotate("seated", len(active))
+                iteration.annotate("admitted", admitted)
+                iteration.annotate("evicted", evicted)
+        return len(active)
+
+    def _emit(self, active: List[int], next_ids: np.ndarray) -> int:
+        """Each seated slot's new token: appended, written into the
+        buffer, and its request finished when done or past its deadline;
+        returns how many slots were evicted."""
         self.iterations += 1
         self.decoded_tokens += len(active)
         self._occupancy_samples.append(len(active))
@@ -360,6 +413,7 @@ class InferenceEngine:
         if tel is not None:
             tel.counter(_telemetry.SERVING_TOKENS_TOTAL,
                         "decoded tokens").inc(len(active))
+        evicted = 0
         for slot in active:
             req = self._slot_req[slot]
             assert req is not None
@@ -374,16 +428,13 @@ class InferenceEngine:
             out_of_room = self._slot_pos[slot] >= self.cfg.seq - 1
             if len(req.tokens) >= req.max_new_tokens or out_of_room:
                 self._finish(slot, STATUS_OK, now, EVICT_DONE)
+                evicted += 1
             elif now > req.deadline:
                 # mid-batch deadline eviction: the slot frees NOW, not
                 # at a batch boundary
                 self._finish(slot, STATUS_DEADLINE, now, EVICT_DEADLINE)
-        if self.cfg.static_batching and self._active() > 0:
-            # control arm: finished members already detached above, but
-            # admission stays barred until the whole batch drains —
-            # modeled by _admit's empty-batch gate, nothing to do here.
-            pass
-        return len(active)
+                evicted += 1
+        return evicted
 
     def _publish_gauges(self, occupied: int) -> None:
         tel = self.telemetry
@@ -424,9 +475,12 @@ class InferenceEngine:
         while not self._stop.is_set():
             decoded = self.step()
             if decoded == 0:
-                with self._cv:
-                    if not self._queue:
-                        self._cv.wait(timeout=idle_wait_s)
+                # a root: nothing is open on this thread between steps
+                with _telemetry.maybe_span(self._spans, _PARK, "serving",
+                                           parent=None):
+                    with self._cv:
+                        if not self._queue:
+                            self._cv.wait(timeout=idle_wait_s)
 
     def start(self) -> "InferenceEngine":
         if self._thread is None:

@@ -179,3 +179,43 @@ def test_init_params_matches_reference_shapes_dtypes_scales(param_dtype):
         assert abs(std / scales[name] - 1) < 0.03, (name, std)
         assert abs(float(jnp.std(arr.astype(jnp.float32)))
                    / scales[name] - 1) < 0.03
+
+
+# The rows a decode reads (``forward``'s ``at``): the last row, a middle
+# row, a different row per batch entry (TINY's batch is 2).
+READ_ROWS = {"last": [127, 127], "middle": [60, 60], "per_row": [5, 100]}
+# Gathered after attention, a row's tail and head differ from the full
+# buffer's only in the f32 sum order of a product with fewer rows (the
+# CPU gives the same bits).
+TAIL_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("rows", sorted(READ_ROWS))
+@pytest.mark.parametrize("attention", ["xla", "chunked"])
+def test_forward_at_read_rows_is_the_full_forward_gathered(attention, rows):
+    cfg, params, tokens = _setup("bf16")
+    cfg = replace(cfg, attention=attention)
+    pcfg = _to_port(cfg)
+    tparams = port.params_from_jax(
+        {k: np.asarray(v) for k, v in params.items()}, "cpu")
+    toks = torch.from_numpy(tokens)
+    at = torch.tensor(READ_ROWS[rows])
+    with torch.inference_mode():
+        full = port.forward(tparams, toks, pcfg, at=None)
+        got = port.forward(tparams, toks, pcfg, at=at)
+    # at=None is today's forward: every row's logits
+    assert full.shape == (cfg.batch, cfg.seq, cfg.vocab)
+    assert torch.equal(full, port.forward(tparams, toks, pcfg))
+    assert got.dtype == torch.float32 and got.shape == (cfg.batch, cfg.vocab)
+    want = full[torch.arange(cfg.batch), at]
+    assert (got - want).abs().max().item() <= TAIL_ATOL
+    # and the reference's logits at those rows, within the bf16 bound
+    ref_rows = np.asarray(ref.forward(params, jnp.asarray(tokens), cfg))[
+        np.arange(cfg.batch), READ_ROWS[rows]]
+    assert np.abs(got.numpy() - ref_rows).max() < LOGIT_ATOL
+    # greedy decisions agree wherever the top-2 margin is wider than the
+    # bound
+    top2 = want.topk(2, dim=-1).values
+    wide = (top2[:, 0] - top2[:, 1]) > 2 * TAIL_ATOL
+    assert wide.any()
+    assert torch.equal(got.argmax(-1)[wide], want.argmax(-1)[wide])

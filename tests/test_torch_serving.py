@@ -130,6 +130,36 @@ def test_engine_matches_reference_engine():
     assert checked >= len(PROMPTS)  # the check is not vacuous
 
 
+def test_decode_runs_the_tail_and_head_on_one_row_a_slot(monkeypatch):
+    """One step with every slot seated: the LM head sees ``slots`` rows,
+    not the ``slots * seq`` of the whole buffer, and the tokens are the
+    greedy picks of the full forward at each slot's position."""
+    seen = []
+    head = burnin.lm_head
+
+    def counting(y, w):
+        seen.append(y.shape[:-1].numel())
+        return head(y, w)
+
+    monkeypatch.setattr(burnin, "lm_head", counting)
+    eng = tiny_engine(slots=3)
+    prompts = [(1, 2, 3), (5, 9, 11, 2, 7), (4,)]
+    reqs = [eng.submit(p, max_new_tokens=2) for p in prompts]
+    assert eng.step() == 3
+    assert seen == [3]
+
+    params, _, _ = eng._ensure_model()
+    row = np.zeros((3, TINY["seq"]), np.int32)
+    for i, p in enumerate(prompts):
+        row[i, :len(p)] = p
+    with torch.inference_mode():
+        full = burnin.forward(params, torch.from_numpy(row),
+                              eng.model_config())
+    last = [len(p) - 1 for p in prompts]
+    picks = full[torch.arange(3), torch.tensor(last)].argmax(-1)
+    assert [r.tokens for r in reqs] == [[int(t)] for t in picks]
+
+
 # ----------------------------------------------------------- admission
 
 

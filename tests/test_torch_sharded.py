@@ -175,6 +175,17 @@ def test_vocab_parallel_xent_and_embedding_equal_one_rank(n, port):
     assert errs["embed"] == 0.0 and errs["embed_grad"] == 0.0, errs
 
 
+@pytest.mark.parametrize("n", WORLDS)
+def test_gathered_tail_on_a_model_axis_is_the_full_forward_gathered(n, port):
+    """``forward(..., axis, at=...)`` on the model axis of (1, n): each
+    rank's ``[B, vocab / n]`` logits at the read rows are its full
+    forward's at those rows, up to the f32 sum order of a product with
+    fewer rows."""
+    got = port(n)["gathered_rows"]
+    assert got["shape"] == (CFG["batch"], CFG["vocab"] // n)
+    assert got["err"] <= 1e-5 * max(1.0, got["logit"]), got
+
+
 @pytest.mark.parametrize("name", sorted(RAGGED))
 def test_ragged_split_names_the_axis(name, port):
     msg = port(2)["ragged"][name]

@@ -78,6 +78,18 @@ def test_each_step_is_one_iteration_with_its_parts_in_order():
     assert sum(s.args["seated"] for s in roots) == eng.decoded_tokens
 
 
+def test_dispatch_spans_carry_the_tail_rows():
+    """Every decode's dispatch span says how many rows the block's tail
+    and the LM head ran on: one a slot, seated or not."""
+    tel = telemetry.Telemetry()
+    eng = engine(tel, spans=True)
+    serve(eng)
+    dispatches = [c for s in tel.tracer.roots for c in s.children
+                  if c.name == DISPATCH]
+    assert len(dispatches) == eng.iterations > 0
+    assert all(c.args["tail_rows"] == TINY["slots"] for c in dispatches)
+
+
 def test_a_parked_engine_leaves_park_spans():
     tel = telemetry.Telemetry()
     eng = engine(tel, spans=True).start()

@@ -100,13 +100,35 @@ def vocab_parallel_errors(mesh, seed: int = 0):
         ("embed_grad", embed_grad))}
 
 
+def gathered_rows_error(mesh, cfg, params, batch, seed: int = 0):
+    """The forward on this mesh's model axis with ``at`` (the block's tail
+    and the LM head on one row a batch row) against the same forward's
+    full logits gathered at those rows: the largest absolute error over
+    every rank, and the largest logit."""
+    tp = mesh["model"].size()
+    axis = tensor_parallel.ModelAxis(mesh["model"].get_group(),
+                                     mesh.get_local_rank("model"), tp)
+    p = burnin.shard_params(params, axis.rank, tp)
+    toks = burnin.data_rows(batch, mesh)[0]
+    at = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.seq, toks.shape[0]))
+    with torch.no_grad():
+        full = burnin.forward(p, toks, cfg, axis)
+        rows = burnin.forward(p, toks, cfg, axis, at=at)
+    want = full[torch.arange(toks.shape[0]), at]
+    return {"err": _max_over_ranks((rows - want).abs().max().item()),
+            "shape": tuple(rows.shape),
+            "logit": _max_over_ranks(want.abs().max().item())}
+
+
 def cases(np_params, np_batch, cfg_fields, shapes, ragged, remats=(),
           device=None):
     """Every case of one world size: the sharded steps at each mesh of
     ``shapes``, then at each ``(shape, remat)`` of ``remats`` with that
     remat policy, the vocabulary-split pieces on the last mesh of
     ``shapes``, and the error a ragged split over that mesh's model axis
-    raises for each config override in ``ragged``."""
+    raises for each config override in ``ragged``; the forward's gathered
+    tail (``at``) on that mesh."""
     cfg = burnin.BurninConfig(**cfg_fields)
     params, batch = _full(np_params, np_batch, device)
     out = {"steps": {}, "remat": {}, "ragged": {}}
@@ -120,6 +142,7 @@ def cases(np_params, np_batch, cfg_fields, shapes, ragged, remats=(),
         mesh = burnin.make_mesh(shape, device)
         out["steps"][shape] = two_steps(mesh, cfg, params, batch)
     out["vocab_parallel"] = vocab_parallel_errors(mesh)
+    out["gathered_rows"] = gathered_rows_error(mesh, cfg, params, batch)
     for name, fields in ragged.items():
         try:
             burnin.make_sharded_step(

@@ -279,16 +279,26 @@ def lm_head(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            cfg: BurninConfig, axis: Optional[ModelAxis] = None
-            ) -> torch.Tensor:
+            cfg: BurninConfig, axis: Optional[ModelAxis] = None,
+            at: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One pre-norm transformer block + LM head: bf16 compute, f32
     ``[B, S, vocab]`` logits. ``tokens`` is an integer ``[B, S]`` tensor
     on the parameters' device.
 
+    ``at``, a ``[B]`` long tensor on that device, names the one position
+    of each batch row whose logits the caller reads (a decode step's).
+    Attention still runs over every position, since the keys and values
+    of the positions before a row feed it; everything after attention
+    works row by row, so the block's tail (``wo``, the MLP, both residual
+    adds, the final norm) and the LM head run on those ``B`` rows alone,
+    and the result is ``[B, vocab]``: row ``b`` is ``forward(...)[b,
+    at[b]]`` up to the f32 sum order of a product with fewer rows.
+
     With a model ``axis`` the parameters are this rank's shards
     (:func:`shard_params`): ``H / tp`` heads, ``F / tp`` hidden units and
     ``vocab / tp`` embedding rows and logit columns, and the result is
-    this rank's ``[B, S, vocab / tp]`` slice of the logits."""
+    this rank's ``[B, S, vocab / tp]`` slice of the logits (``[B, vocab
+    / tp]`` with ``at``, which indexes this rank's rows)."""
     _check_knobs(cfg)
     bf16 = torch.bfloat16
     x = embed_lookup(params["embed"], tokens, axis).to(bf16)   # [B, S, D]
@@ -312,6 +322,9 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     else:
         o = _xla_attention(q, k, v, d_head, cfg.score_dtype)
     o = o.reshape(*x.shape[:2], h * d_head)
+    if at is not None:
+        rows = torch.arange(x.shape[0], device=x.device)
+        x, o = x[rows, at], o[rows, at]      # each row's [D] and [h * d_head]
     x = x + reduce_from_model(o @ params["wo"].to(bf16), axis)
     y = copy_to_model(_rms(x), axis)
     ff = F.gelu(y @ params["w1"].to(bf16), approximate="tanh")

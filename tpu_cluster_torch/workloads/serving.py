@@ -7,8 +7,9 @@ slot-based continuous-batching decode loop (the Orca scheduling shape):
 
 - **Slot-based decode batching.** The decode batch is ``slots`` fixed
   positions over one static ``[slots, seq]`` token buffer; each
-  iteration runs ONE full-sequence forward over it and advances every
-  seated sequence by one token.
+  iteration runs ONE full-sequence forward over it (attention over every
+  position, the block's tail and the LM head on each slot's read row
+  alone) and advances every seated sequence by one token.
 - **Iteration-level admission.** Between iterations finished sequences
   are evicted and queued requests are prefilled into the freed slots;
   ``static_batching=True`` is the control arm behind a batch-boundary
@@ -112,6 +113,10 @@ def make_decode(mcfg: burnin.BurninConfig, device: torch.device,
     returns the ``[slots]`` int32 next ids on the host. With
     ``telemetry``, its upload, dispatch and sync are spans.
 
+    The forward attends over the whole buffer but runs the block's tail
+    and the LM head on the one row each slot reads (``burnin.forward``'s
+    ``at``); the dispatch span carries that row count as ``tail_rows``.
+
     Causal attention means positions > pos cannot leak into the logits at
     pos, so pad tokens in the buffer tail are inert and every slot decodes
     independently of its batch neighbours (slot isolation — the property
@@ -122,14 +127,15 @@ def make_decode(mcfg: burnin.BurninConfig, device: torch.device,
         with _telemetry.maybe_span(telemetry, _UPLOAD, "serving"):
             toks = torch.from_numpy(tokens).to(device)
             at = torch.from_numpy(pos).to(device=device, dtype=torch.long)
-        with _telemetry.maybe_span(telemetry, _DISPATCH, "serving"):
+        with _telemetry.maybe_span(telemetry, _DISPATCH,
+                                   "serving") as dispatch:
             # grad mode is thread-local: enter inference mode on the
             # thread that runs the decode (the engine thread)
             with torch.inference_mode():
-                logits = burnin.forward(params, toks, mcfg)
-                last = logits[torch.arange(logits.shape[0], device=device),
-                              at]
-                next_ids = torch.argmax(last, dim=-1).to(torch.int32)
+                logits = burnin.forward(params, toks, mcfg, at=at)
+                next_ids = torch.argmax(logits, dim=-1).to(torch.int32)
+            if dispatch is not None:
+                dispatch.annotate("tail_rows", logits.shape[:-1].numel())
         # the device-to-host copy is the iteration's sync
         with _telemetry.maybe_span(telemetry, _SYNC, "serving"):
             return next_ids.cpu().numpy()

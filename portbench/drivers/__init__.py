@@ -1,1 +1,3 @@
-"""One driver per kind of traffic, found by the name a cell gives."""
+"""One driver per kind of cell, found by the name a cell gives. Each has
+``run``, ``calibration``, ``COMPARED`` and ``check_model`` (``harness``'s
+docstring says what each is)."""

@@ -1,4 +1,5 @@
 """Open-loop serving: requests sent when due, whatever the engine does
 (``portbench.serve``, an ``open`` traffic mix)."""
 
-from portbench.serve import run  # noqa: F401
+from portbench.serve import (COMPARED, calibration,  # noqa: F401
+                             check_model, run)

@@ -1,4 +1,5 @@
 """Saturated serving: a queue kept full from before the window to its
 end (``portbench.serve``, a ``saturated`` traffic mix)."""
 
-from portbench.serve import run  # noqa: F401
+from portbench.serve import (COMPARED, calibration,  # noqa: F401
+                             check_model, run)

@@ -9,27 +9,34 @@ losses, each leaf's first gradient as the update shows it
 (``|p0 - p1| / lr``) and each leaf's change after them are taken inside
 the window, as device tensors, from a copy of the parameters the window
 starts from. Afterwards the plain reference runs those steps again from
-the seed's parameters and the same batches.
+the seed's parameters and the same batches. A traced run records the
+window's steps as the port's spans (``telemetry=``).
 """
 
 from __future__ import annotations
 
 import gc
+import json
 import math
 import statistics
+import sys
 import time
 from dataclasses import dataclass, replace
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
-from portbench import harness, inputs, work
+from portbench import harness, inputs, spans, work
 from portbench.reference import model as ref
 from portbench.trace import profiled, reduce, window_span
 
 # A leaf whose reference gradient is below this share of the median
 # leaf's moves by round-off alone and is not compared.
 NEGLIGIBLE_GRAD = 1e-3
+
+# The numbers a run judges (``compare``), each a limit of the cell's file.
+COMPARED = frozenset({"loss_gap", "grad_gap", "change_gap"})
+check_model = inputs.check_burnin
 
 
 @dataclass
@@ -154,8 +161,44 @@ def compare(prog: Readings, want: Readings) -> Dict[str, float]:
     }
 
 
+def calibration(cell: harness.Cell, device: torch.device, seeds,
+                control_seeds, seconds: float) -> Dict[str, Any]:
+    """Per seed, the program's sound readings and, on ``control_seeds``,
+    the fp8 control's, half of the batch left out (in the reference put
+    in the program's place) and a state left unchanged (the program's
+    losses with no update), each judged by the cell's limits. Training
+    takes no window: ``seconds`` is unused."""
+    cfg = step_config(cell, device)
+    rows: Dict[str, Any] = {"sound": {}, "control": {}, "half_batch": {},
+                            "state_unchanged": {}}
+    for seed in seeds:
+        cell.seed = seed
+        feed = batches(cell, device)
+        prog = checked_steps(cell, device, cfg, feed)
+        torch.cuda.empty_cache()
+        want = reference(cell, device, feed)
+        rows["sound"][seed] = harness.judged(cell, compare(prog, want))
+        if seed in control_seeds:
+            rows["control"][seed] = harness.judged(cell, compare(
+                reference(cell, device, feed, "fp8"), want))
+            rows["half_batch"][seed] = harness.judged(cell, compare(
+                reference(cell, device, feed, "f32",
+                          half_batch(cell, device)), want))
+            still = Readings(prog.losses, {k: 0.0 for k in prog.first},
+                             {k: 0.0 for k in prog.change})
+            rows["state_unchanged"][seed] = harness.judged(
+                cell, compare(still, want))
+        print(json.dumps({"seed": seed, **{k: v.get(seed) for k, v in
+                                           rows.items()}}), file=sys.stderr)
+    return rows
+
+
 def run(cell: harness.Cell, device: torch.device, started: float):
     burnin = program()
+    tel = None
+    if cell.trace:
+        from tpu_cluster_torch import telemetry
+        tel = telemetry.Telemetry()
     cfg = step_config(cell, device)
     feed = batches(cell, device)
     p = inputs.train_params(cell.model, cell.seed, device)
@@ -168,12 +211,13 @@ def run(cell: harness.Cell, device: torch.device, started: float):
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     steps = 0
-    with profiled(cell.trace) as prof:
+    with profiled(cell.trace, tel and tel.tracer) as prof:
         with window_span():
             t0 = time.perf_counter()
             setup_s = t0 - started
             while True:
-                p, loss = burnin.train_step(p, feed[steps % len(feed)], cfg)
+                p, loss = burnin.train_step(p, feed[steps % len(feed)], cfg,
+                                            telemetry=tel)
                 steps += 1
                 watch.step(p, loss)
                 if steps >= watch.n \
@@ -203,6 +247,7 @@ def run(cell: harness.Cell, device: torch.device, started: float):
         "attn_shape": (t["batch"], m["n_heads"], m["d_model"] // m["n_heads"],
                        t["seq"]),
         "trace": dev_trace,
+        **spans.record_keys(prof, tel and tel.tracer),
     }
     ok = math.isfinite(last)
     return {"record": rec, "checks": checks,

@@ -1,6 +1,7 @@
 """The inputs the benchmark makes from ``--seed`` and hands to both the
 program and the plain reference: training parameters and token ids.
-Made on the device, in a few large calls."""
+Made on the device, in a few large calls. Also the shape of model that
+the burn-in block runs (:func:`check_burnin`)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,20 @@ PARAM_TABLE = (
     ("w2", lambda d, f, v: (f, d), lambda d, f: f ** -0.5),
     ("out", lambda d, f, v: (d, v), lambda d, f: d ** -0.5),
 )
+
+
+def check_burnin(model: Dict[str, int]) -> None:
+    """Raise where the burn-in block cannot run ``model``: its heads split
+    ``d_model`` evenly (one kind of head, no separate key and value
+    heads), at a width the port's attention kernels take."""
+    from tpu_cluster_torch.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+
+    if model["d_model"] != model["n_heads"] * model["d_head"]:
+        raise ValueError(f"d_model {model['d_model']} is not n_heads "
+                         f"{model['n_heads']} x d_head {model['d_head']}")
+    if model["d_head"] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"d_head {model['d_head']} is none of the kernels' "
+                         f"{SUPPORTED_HEAD_DIMS}")
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:

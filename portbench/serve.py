@@ -9,12 +9,15 @@ host-clock time; the engine's stamps (``time.monotonic``) time each
 request. Afterwards the plain reference judges a sample, drawn from the
 seed, of the requests the window served, the longest among them: the
 widest gap by which a served token's logit lies below the reference's
-best at its position.
+best at its position. A traced run builds the engine with its spans
+armed (``spans=True``).
 """
 
 from __future__ import annotations
 
 import gc
+import json
+import sys
 import threading
 import time
 from dataclasses import dataclass
@@ -23,10 +26,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from portbench import harness, traffic
+from portbench import harness, inputs, spans, traffic
 from portbench.reference import engine_weights
 from portbench.reference import model as ref
 from portbench.trace import profiled, reduce, window_span
+
+# The numbers a run judges, each a limit of the cell's file.
+COMPARED = frozenset({"served_gap", "unanswered"})
+check_model = inputs.check_burnin
 
 
 def program():
@@ -46,11 +53,12 @@ def engine_config(cell: harness.Cell):
 
 
 def start_engine(cell: harness.Cell, device: torch.device, warm_prompt):
-    """A started engine that has run the warm-up request."""
+    """A started engine that has run the warm-up request; with its spans
+    armed in a traced run."""
     serving, telemetry = program()
     eng = serving.InferenceEngine(engine_config(cell),
                                   telemetry=telemetry.Telemetry(),
-                                  device=device).start()
+                                  device=device, spans=cell.trace).start()
     warm = eng.submit(warm_prompt, max_new_tokens=cell.traffic["warm_tokens"],
                       deadline_s=600.0)
     if not warm.done.wait(600.0) or warm.status != "ok":
@@ -174,7 +182,7 @@ def run(cell: harness.Cell, device: torch.device, started: float):
         # the profiler starts before the traffic and stops once the
         # judged requests are done: its start and stop stall the engine
         # for a moment, which no judged request may meet
-        with profiled(cell.trace) as prof:
+        with profiled(cell.trace, eng.telemetry.tracer) as prof:
             sender.t_base = time.monotonic() + 0.05
             sender.start()
             if saturated:
@@ -232,6 +240,7 @@ def run(cell: harness.Cell, device: torch.device, started: float):
     served = [s for s in judged if s.req.tokens]
     picked = sample(served, cell.seed, mix["check_requests"])
     sequences = [(s.req.prompt, list(s.req.tokens)) for s in picked]
+    traced = spans.record_keys(prof, eng.telemetry.tracer)
     del eng
     gc.collect()
     if device.type == "cuda":
@@ -247,7 +256,7 @@ def run(cell: harness.Cell, device: torch.device, started: float):
         "decoded_in_window": after["decoded"] - before["decoded"],
         "occupancy": occupancy,
         "slots": cell.spec["engine"]["slots"],
-        "model": m, "trace": dev_trace,
+        "model": m, "trace": dev_trace, **traced,
     }
     failed = sum(1 for r in rows if r["status"] != "ok")
     lateness = [r["submitted"] - r["due"] for r in rows]
@@ -258,3 +267,101 @@ def run(cell: harness.Cell, device: torch.device, started: float):
             "notes": {"generator_late_max_s": max(lateness, default=0.0),
                       "checked_requests": len(sequences),
                       "checked_tokens": sum(len(t) for _, t in sequences)}}
+
+
+# ------------------------------------------------------------ calibration
+
+
+def _serve_window(eng, cell: harness.Cell, seconds: float) -> List[Any]:
+    """One short window at the cell's load; the requests it served, all
+    finished."""
+    mix = cell.traffic
+    plan = traffic.plan(mix, cell.seed, seconds, cell.model["vocab"],
+                        cell.spec["engine"]["seq"])
+    if mix["kind"] == "saturated":
+        sender = Sender(eng, plan, mix["deadline_s"],
+                        depth=mix["queue_depth"])
+        t0 = time.monotonic()
+    else:
+        t_base = time.monotonic() + 0.05
+        sender = Sender(eng, plan, mix["deadline_s"], t_base=t_base)
+        t0 = t_base + mix["arrivals"]["lead_in_s"]
+    sender.start()
+    time.sleep(max(0.0, t0 - time.monotonic()) + seconds)
+    t1 = time.monotonic()
+    if mix["kind"] == "saturated":
+        sender.stop.set()
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        window = [s for s in list(sender.sent) if s.due < t1]
+        if all(s.req.done.is_set() for s in window):
+            break
+        time.sleep(0.05)
+    sender.stop.set()
+    sender.join(timeout=10)
+    if sender.error is not None:
+        raise sender.error
+    # let the rest finish, so that the next window starts on an idle engine
+    while eng.queue_depth() or eng._active():
+        time.sleep(0.05)
+    if mix["kind"] == "saturated":
+        return [s for s in sender.sent if s.req.finished_ts is not None
+                and t0 <= s.req.finished_ts <= t1 and s.req.tokens]
+    return [s for s in sender.sent if t0 <= s.due < t1 and s.req.tokens]
+
+
+def _served(cell: harness.Cell, gap: float) -> Dict[str, Any]:
+    """A serving reading as a run judges it; every request answered."""
+    return harness.judged(cell, {"served_gap": gap, "unanswered": 0.0})
+
+
+def calibration(cell: harness.Cell, device: torch.device, seeds,
+                control_seeds, seconds: float) -> Dict[str, Any]:
+    """One engine; per seed a short window of ``seconds`` at the cell's
+    load and its judged sample: the program's served gap and, on
+    ``control_seeds``, the fp8 control's, a served token altered and a
+    decode that returns its state unchanged (the first served token again
+    and again), each judged by the cell's limits."""
+    mix = cell.traffic
+    first = traffic.plan(mix, seeds[0], 1.0, cell.model["vocab"],
+                         cell.spec["engine"]["seq"])[0]
+    eng = start_engine(cell, device, first.prompt)
+    windows = {}
+    try:
+        for seed in seeds:
+            cell.seed = seed
+            served = _serve_window(eng, cell, seconds)
+            picked = sample(served, seed, mix["check_requests"])
+            windows[seed] = [(s.req.prompt, list(s.req.tokens)) for s in picked]
+    finally:
+        eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    rows: Dict[str, Any] = {"sound": {}, "control": {}, "token_altered": {},
+                            "state_unchanged": {}}
+    tokens: Dict[int, int] = {}
+    vocab = cell.model["vocab"]
+    for seed, seqs in windows.items():
+        cell.seed = seed
+        rng = np.random.default_rng(seed)
+        altered, unchanged = [], []
+        for prompt, toks in seqs:
+            i = int(rng.integers(len(toks)))
+            bad = list(toks)
+            bad[i] = (bad[i] + 1 + int(rng.integers(vocab - 1))) % vocab
+            altered.append((prompt, bad))
+            unchanged.append((prompt, [toks[0]] * len(toks)))
+        g = gaps(cell, device, seqs, control=seed in control_seeds)
+        rows["sound"][seed] = _served(cell, max(g["served"]))
+        tokens[seed] = sum(len(t) for _, t in seqs)
+        if seed in control_seeds:
+            rows["control"][seed] = _served(cell, max(g["control"]))
+            rows["token_altered"][seed] = _served(cell, max(
+                gaps(cell, device, altered)["served"]))
+            rows["state_unchanged"][seed] = _served(cell, max(
+                gaps(cell, device, unchanged)["served"]))
+        print(json.dumps({"seed": seed, "checked_tokens": tokens[seed],
+                          **{k: v.get(seed) for k, v in rows.items()}}),
+              file=sys.stderr)
+    rows["checked_tokens"] = tokens
+    return rows

@@ -19,28 +19,28 @@ take those spans and the profiler's events:
   while the caller waits in ``train.loss_and_grads``;
 - :func:`host_turn_ms` and :func:`sgd_update_share`, the readings.
 
-A traced run of a cell with the spans armed:
+A traced run (``--trace 1``) arms the spans: the serving engine is built
+with ``spans=True``, the window's training steps take ``telemetry=``,
+and the record gains ``spans`` and ``timeline`` (:func:`record_keys`),
+which the readers ``host_turn_ms.*`` and ``sgd_update_share.train``
+take. An untraced run arms nothing. All the readings of one traced run:
 
     python3 -m portbench.spans --workload <cell> --seed <n> --seconds <s>
 
-runs ``portbench.run --trace 1`` with the engine's spans, or each
-training step's, armed and the profiler's events kept; it prints the
-run's line, then one line of span readings (:func:`readings`). The
-harness's own line does not carry them: its serving and training runs
-neither arm the spans nor keep the events.
+prints one line of them (:func:`readings`).
 """
 
 from __future__ import annotations
 
 import argparse
 import bisect
-import contextlib
 import json
 import sys
+import time
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
-from portbench import harness, run, trace
+from portbench import harness, trace
 
 OUTSIDE = "outside spans"
 # how far before a span's start clock_bounds_us looks for its call
@@ -293,89 +293,21 @@ def readings(tl: Timeline, spans: List[SpanTime], kind: str
     return out
 
 
-# ------------------------------------------------------- the armed run
+# ------------------------------------------------------- on the record
 
 
-class _ArmedBurnin:
-    """The port's ``burnin`` module with each ``train_step``'s spans
-    recorded on ``tel``."""
-
-    def __init__(self, burnin, tel) -> None:
-        self._burnin, self._tel = burnin, tel
-
-    def __getattr__(self, name: str):
-        return getattr(self._burnin, name)
-
-    def train_step(self, params, batch, cfg):
-        return self._burnin.train_step(params, batch, cfg,
-                                       telemetry=self._tel)
-
-
-class Armed:
-    """While :meth:`on`: the cell's run goes with the port's spans armed,
-    on :attr:`tel`, and keeps the profiler's events; the clock anchor is
-    read again as the profiler starts and as it stops."""
-
-    def __init__(self) -> None:
-        self.tel: Any = None
-        self.events: Any = None
-        self.drift_ns: Optional[int] = None
-
-    @contextlib.contextmanager
-    def _profiled(self, enabled: bool) -> Iterator[Optional[object]]:
-        with trace.profiled(enabled) as prof:
-            self.tel.tracer.reanchor()
-            wall, mono = self.tel.tracer.anchor
-            yield prof
-        self.tel.tracer.reanchor()
-        wall1, mono1 = self.tel.tracer.anchor
-        self.drift_ns = (wall1 - mono1) - (wall - mono)
-        self.tel.tracer.anchor = (wall, mono)
-        if prof is not None:
-            self.events = prof.profiler.kineto_results.events()
-
-    def _start_engine(self, cell: harness.Cell, device, warm_prompt):
-        from portbench import serve
-
-        serving, _ = serve.program()
-        eng = serving.InferenceEngine(serve.engine_config(cell),
-                                      telemetry=self.tel, device=device,
-                                      spans=True).start()
-        warm = eng.submit(warm_prompt,
-                          max_new_tokens=cell.traffic["warm_tokens"],
-                          deadline_s=600.0)
-        if not warm.done.wait(600.0) or warm.status != "ok":
-            eng.stop()
-            raise RuntimeError("warm-up request ended "
-                               f"{warm.status or 'unfinished'}")
-        return eng
-
-    @contextlib.contextmanager
-    def on(self, cell: harness.Cell) -> Iterator["Armed"]:
-        from tpu_cluster_torch import telemetry
-
-        self.tel = telemetry.Telemetry()
-        mod = sys.modules[harness.driver(cell).run.__module__]
-        swaps = {"profiled": self._profiled}
-        if cell.traffic["kind"] == "train":
-            program = mod.program
-            swaps["program"] = lambda: _ArmedBurnin(program(), self.tel)
-        else:
-            swaps["start_engine"] = self._start_engine
-        saved = {k: getattr(mod, k) for k in swaps}
-        for k, v in swaps.items():
-            setattr(mod, k, v)
-        try:
-            yield self
-        finally:
-            for k, v in saved.items():
-                setattr(mod, k, v)
-
-    def readings(self, cell: harness.Cell) -> Dict[str, Any]:
-        out = readings(timeline(self.events),
-                       program_spans(self.tel.tracer), cell.traffic["kind"])
-        out["clock_drift_us"] = self.drift_ns * 1e-3
-        return out
+def record_keys(prof, tracer) -> Dict[str, Any]:
+    """What a traced run adds to its record for the span readers:
+    ``spans``, the program's finished spans on the profiler's clock,
+    ``timeline``, the window's device intervals and launches, and
+    ``clock_drift_us``, how far the spans' clock drifted from the
+    profiler's while it ran (``trace.profiled``); nothing for an untraced
+    run (``prof`` None)."""
+    if prof is None:
+        return {}
+    return {"spans": program_spans(tracer),
+            "timeline": timeline(prof.profiler.kineto_results.events()),
+            "clock_drift_us": prof.clock_drift_ns * 1e-3}
 
 
 def main(argv=None) -> int:
@@ -384,14 +316,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     args = ap.parse_args(argv)
+    started = time.perf_counter()
     cell = harness.load_cell(args.workload, args.seed, args.seconds, True)
-    armed = Armed()
-    with armed.on(cell):
-        rc = run.main(["--workload", args.workload, "--seed", str(args.seed),
-                       "--seconds", str(args.seconds), "--trace", "1"])
-    if rc != 0:
-        return rc
-    print(json.dumps({"spans": armed.readings(cell)}))
+    harness.pin_caches()
+    harness.require_card(cell.chips)
+    import torch
+
+    rec = harness.driver(cell).run(cell, torch.device("cuda", 0),
+                                   started)["record"]
+    print(json.dumps({"spans": dict(
+        readings(rec["timeline"], rec["spans"], rec["kind"]),
+        clock_drift_us=rec["clock_drift_us"])}))
     return 0
 
 

@@ -49,8 +49,8 @@ def test_training_sound_run_is_correct(name):
 def _unchanged(burnin, monkeypatch):
     step = burnin.train_step
 
-    def fake(params, batch, cfg):
-        return params, step(params, batch, cfg)[1]
+    def fake(params, batch, cfg, **kw):
+        return params, step(params, batch, cfg, **kw)[1]
     monkeypatch.setattr(burnin, "train_step", fake)
 
 
@@ -79,9 +79,9 @@ def _unchanged_in_window(burnin, monkeypatch):
     step = burnin.train_step
     calls = []
 
-    def fake(params, batch, cfg):
+    def fake(params, batch, cfg, **kw):
         calls.append(1)
-        new, loss = step(params, batch, cfg)
+        new, loss = step(params, batch, cfg, **kw)
         return (params if len(calls) > WARM_CALLS else new), loss
     monkeypatch.setattr(burnin, "train_step", fake)
 

@@ -104,13 +104,11 @@ def test_training_reference_and_its_control(model):
 def test_serving_reference_and_its_control():
     """The engine's greedy tokens lie within rounding of the reference's
     best; the tokens the fp8 reference puts first lie well below it."""
-    from portbench import calibrate
-
     cell = tiny_cell("gptj6b-serve-poisson")
     cell.config["model"] = dict(MEDIUM)
     eng = serve.start_engine(cell, CPU, (1, 2, 3))
     try:
-        served = calibrate._serve_window(eng, cell, 1.0)
+        served = serve._serve_window(eng, cell, 1.0)
     finally:
         eng.stop()
     seqs = [(s.req.prompt, list(s.req.tokens)) for s in served[:12]]
@@ -126,7 +124,7 @@ def test_calibration_judges_each_reading_by_the_cells_limits():
     from portbench import calibrate
 
     cell = _train_cell(MEDIUM, 1, seq=256)
-    rows = calibrate.training(cell, CPU, [1], {1})
+    rows = harness.driver(cell).calibration(cell, CPU, [1], {1}, 0.0)
     for kind in ("control", "half_batch", "state_unchanged"):
         assert rows[kind][1]["correct"] is False, (kind, rows[kind])
         assert set(rows[kind][1]["numbers"]) == set(cell.limits)

@@ -1,132 +1,150 @@
 """Every cell, configuration, traffic mix, driver and metric of
 ``BENCHMARK.json`` is a file of its own, found by its name, and the file
-keeps to the benchmark's contract."""
+keeps to the benchmark's contract (``harness.contract_problems``); the
+contract takes a cell of another architecture, with a driver of its own,
+as new files and entries, and still refuses each broken case."""
 
 from __future__ import annotations
 
-import json
-import re
+import copy
+import types
 
 import pytest
 
-from portbench import harness, trace
+from portbench import harness
 
 DOC = harness.load_json(harness.BENCHMARK)
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-CELLS = [w["name"] for w in DOC["workloads"]]
-METRICS = DOC["end_to_end"] + DOC["per_layer"]
-COMPARED = {"train": {"loss_gap", "grad_gap", "change_gap"},
-            "serve_open": {"served_gap", "unanswered"},
-            "serve_saturated": {"served_gap", "unanswered"}}
+DRIVERS = sorted(p.stem for p in (harness.HERE / "drivers").glob("*.py")
+                 if p.stem != "__init__")
 
 
-def test_top_level_keys():
-    assert set(DOC) == {"command", "paths", "run_seconds", "configs",
-                        "workloads", "end_to_end", "per_layer"}
-    assert DOC["paths"] == ["portbench"]
-    assert all(not w.startswith("/") and ".." not in w for w in DOC["command"])
-    assert 1 <= DOC["run_seconds"] <= 51
+def test_benchmark_keeps_its_contract():
+    assert harness.contract_problems(DOC) == []
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("name", DRIVERS)
+def test_each_driver_declares_its_contract(name):
+    drv = harness.driver_module(name)
+    assert callable(drv.run) and callable(drv.calibration)
+    assert isinstance(drv.COMPARED, frozenset) and drv.COMPARED
+    assert callable(drv.check_model)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in DOC["workloads"]])
 def test_cell_files_found_by_name(cell):
-    entry = next(w for w in DOC["workloads"] if w["name"] == cell)
     c = harness.load_cell(cell)
-    assert c.spec["config"] == entry["config"]
-    assert c.spec["traffic"] == entry["traffic"]
-    assert c.chips == entry["chips"] == 1
-    assert len(entry["why"]) <= 200 and "\n" not in entry["why"]
-    assert callable(harness.driver(c).run)
-    assert set(c.limits) == COMPARED[c.spec["driver"]]
+    drv = harness.driver(c)
+    assert set(c.limits) == drv.COMPARED
+    drv.check_model(c.model)
 
 
-@pytest.mark.parametrize("config", DOC["configs"], ids=lambda c: c["name"])
-def test_config_files(config):
-    doc = harness.load_json(harness.ROOT / config["file"])
-    assert doc["name"] == config["name"]
-    assert config["file"].startswith("portbench/configs/")
-    assert sorted(doc["reduced"]) == sorted(config["reduced"])
-    for key in config["reduced"]:
-        assert NAME.match(key)
-        assert not key.endswith(("_dim", "_rank"))
-    m = doc["model"]
-    assert m["d_model"] == m["n_heads"] * m["d_head"]
-    assert m["context"] >= max(
-        harness.load_cell(w["name"]).traffic.get("seq", 0)
-        for w in DOC["workloads"] if w["config"] == config["name"])
+# ------------------------------------------- a cell of another architecture
+
+# GQA at Mellum2-12B-A2.5B's widths (d_model 2304 != 32 heads x 128), its
+# sparse experts, one period of its layer pattern.
+GQA_MOE = {"d_model": 2304, "n_heads": 32, "n_kv_heads": 4, "d_head": 128,
+           "d_expert": 896, "n_experts": 64, "top_k": 8, "vocab": 98304,
+           "context": 131072, "layers": 4}
+CONFIG_FILE = "portbench/configs/moe-gqa.json"
+CELL = "moe-gqa-train-s8192"
+FILES = {
+    CONFIG_FILE: {"name": "moe-gqa", "model": GQA_MOE,
+                  "reduced": {"num_hidden_layers": "28 -> 4: one period"}},
+    f"portbench/workloads/{CELL}.json": {
+        "config": "moe-gqa", "traffic": "train-b2-s8192", "driver": "moe_train",
+        "chips": 1, "limits": {"loss_gap": 1e-4, "grad_gap": 2e-3,
+                               "change_gap": 2e-3, "dropped_tokens": 0.0}},
+    "portbench/traffic/train-b2-s8192.json": {"kind": "train", "batch": 2,
+                                              "seq": 8192},
+}
 
 
-@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])
-def test_metric_reader_found_by_name(metric):
-    assert NAME.match(metric["name"]) and UNIT.match(metric["unit"])
-    assert metric["better"] in ("lower", "higher")
-    assert callable(harness.reader(metric["name"]))
-    assert set(metric.get("workloads", CELLS)) <= set(CELLS)
+def _moe_check(model):
+    if model["n_heads"] % model["n_kv_heads"]:
+        raise ValueError("query heads do not group over the key heads")
+    if model["d_head"] not in (128, 256):
+        raise ValueError(f"d_head {model['d_head']}")
 
 
-def test_names_unique_and_valid():
-    for group in ("configs", "workloads"):
-        names = [x["name"] for x in DOC[group]]
-        assert len(names) == len(set(names))
-        assert all(NAME.match(n) for n in names)
-    names = [m["name"] for m in METRICS]
-    assert len(names) == len(set(names))
-    for w in DOC["workloads"]:
-        assert NAME.match(w["config"]) and NAME.match(w["traffic"])
+MOE_DRIVER = types.SimpleNamespace(
+    __name__="moe_train", run=lambda *a: None, calibration=lambda *a: None,
+    COMPARED=frozenset({"loss_gap", "grad_gap", "change_gap",
+                        "dropped_tokens"}),
+    check_model=_moe_check)
 
 
-def test_bounds_and_sources():
-    for m in DOC["end_to_end"]:
-        assert 0.01 <= m["bound"] <= 0.25
-        assert m["source"] in ("host_clock", "device_trace")
-    for m in DOC["per_layer"]:
-        assert m["source"] in ("device_trace", "program_span",
-                               "program_counter", "host_clock")
-        assert "bound" not in m
+def _synthetic():
+    """``BENCHMARK.json`` with the GQA/MoE configuration and its training
+    cell added as new files and entries, and its own driver."""
+    doc = copy.deepcopy(DOC)
+    files = copy.deepcopy(FILES)
+    doc["configs"].append({"name": "moe-gqa", "source": "https://huggingface."
+                           "co/JetBrains/Mellum2-12B-A2.5B-Instruct",
+                           "file": CONFIG_FILE,
+                           "reduced": ["num_hidden_layers"],
+                           "why": "GQA, sparse experts"})
+    doc["workloads"].append({"name": CELL, "config": "moe-gqa",
+                             "traffic": "train-b2-s8192", "chips": 1,
+                             "why": "one period at b2 x s8192"})
+    for m in doc["end_to_end"] + doc["per_layer"]:
+        if m["name"] in ("train_tokens_per_s", "train_mfu"):
+            m["workloads"].append(CELL)
+    return doc, files
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_each_cell_reports_enough(cell):
-    e2e = {m["name"] for m in harness.benchmark_metrics(cell, "end_to_end")}
-    layer = harness.benchmark_metrics(cell, "per_layer")
-    assert "setup_s" in e2e and len(e2e) >= 2 and layer
-    for m in layer:
-        assert m["moves"] in e2e
+def _limits_differ(doc, files):
+    del files[f"portbench/workloads/{CELL}.json"]["limits"]["dropped_tokens"]
 
 
-def test_per_layer_moves_an_end_to_end_metric():
-    e2e = {m["name"] for m in DOC["end_to_end"]}
-    layers = {}
-    for m in DOC["per_layer"]:
-        assert m["moves"] in e2e
-        assert "\n" not in m["layer"] and len(m["layer"]) <= 200
-        layers.setdefault(m["name"].split(".")[0], set()).add(m["layer"])
-    assert all(len(v) == 1 for v in layers.values())
+def _burnin_driver_on_gqa(doc, files):
+    files[f"portbench/workloads/{CELL}.json"]["driver"] = "train"
+    files[f"portbench/workloads/{CELL}.json"]["limits"].pop("dropped_tokens")
 
 
-@pytest.mark.parametrize("group", ["attn_fwd", "attn_bwd"])
-def test_kernel_names_are_the_ports_kernels(group):
-    names = trace.kernel_names(group)
-    assert names
-    sources = "".join(p.read_text() for p in
-                      (harness.ROOT / "tpu_cluster_torch" / "csrc").glob("*.cu"))
-    for name in names:
-        assert re.search(r"__global__.{0,200}?\b" + name + r"\(", sources,
-                         re.S), name
+def _reduced_width(doc, files):
+    doc["configs"][-1]["reduced"].append("head_dim")
+    files[CONFIG_FILE]["reduced"]["head_dim"] = "128 -> 64"
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_serving_mix_names_its_source(cell):
-    """A serving mix cites the public workload its lengths come from, and
-    lists what it set itself and each clip it makes."""
-    mix = harness.load_cell(cell).traffic
-    if mix["kind"] == "train":
-        return
-    assert mix["source"] and len(mix["source"]) <= 200
-    assert mix["assumed"]
-    assert {"prompt.max", "output.max"} <= set(mix["reduced"])
+def _short_context(doc, files):
+    files[CONFIG_FILE]["model"]["context"] = 4096
 
 
-def test_benchmark_file_is_small():
-    assert len(json.dumps(DOC)) < 64 * 1024
+def _two_layer_texts(doc, files):
+    doc["per_layer"].append(dict(
+        next(m for m in doc["per_layer"] if m["name"] == "train_mfu"),
+        name="train_mfu.moe", layer="experts (another text)",
+        workloads=[CELL]))
+
+
+@pytest.mark.parametrize("broken, says", [
+    (None, None),
+    (_limits_differ, "limits"),
+    (_burnin_driver_on_gqa, "refuses it"),
+    (_reduced_width, "width"),
+    (_short_context, "context"),
+    (_two_layer_texts, "layer texts"),
+], ids=["accepted", "limits_differ_from_compared", "burnin_d_model",
+        "reduced_dim", "context_under_seq", "two_layer_texts"])
+def test_a_new_architecture_joins_as_new_files(broken, says, monkeypatch):
+    doc, files = _synthetic()
+    if broken is not None:
+        broken(doc, files)
+    if broken is _two_layer_texts:
+        # the extra metric's reader: the one of its prefix
+        real = harness.reader
+        monkeypatch.setattr(harness, "reader", lambda name: real(
+            "train_mfu" if name == "train_mfu.moe" else name))
+
+    def read(rel):
+        return files[rel] if rel in files else harness.load_json(
+            harness.ROOT / rel)
+    problems = harness.contract_problems(doc, read,
+                                         {"moe_train": MOE_DRIVER})
+    if says is None:
+        assert problems == []
+    else:
+        assert problems and all(CELL in p or "moe-gqa" in p
+                                or "train_mfu" in p for p in problems), \
+            problems
+        assert any(says in p for p in problems), problems

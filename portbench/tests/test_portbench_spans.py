@@ -4,7 +4,6 @@ run on the CPU at toy sizes."""
 
 from __future__ import annotations
 
-import sys
 import time
 from types import SimpleNamespace
 
@@ -122,29 +121,65 @@ def test_idle_goes_to_the_innermost_span_holding_it():
     assert spans.busy_within(tl, 25, 165) == 10
 
 
-@pytest.mark.parametrize("name", ["gptj6b-train-s2048",
-                                  "mpt7b8k-serve-offline"])
-def test_an_armed_run_on_the_cpu_records_the_spans(name):
+SPAN_READERS = {"train": ["sgd_update_share.train"],
+                "open": ["host_turn_ms.online"],
+                "saturated": ["host_turn_ms.offline"]}
+
+
+def _tiny_run(name, traced):
     cell = tiny_cell(name)
-    cell.trace = True
-    armed = spans.Armed()
+    cell.trace = traced
     torch.manual_seed(0)
-    with armed.on(cell):
-        out = harness.driver(cell).run(cell, torch.device("cpu"),
-                                       time.perf_counter())
+    out = harness.driver(cell).run(cell, torch.device("cpu"),
+                                   time.perf_counter())
     assert out["attempted"] > 0 and out["failed"] == 0
-    assert armed.events is not None and armed.drift_ns is not None
-    names = {s.name for s in armed.tel.tracer.walk()}
-    got = armed.readings(cell)
-    if cell.traffic["kind"] == "train":
+    return cell, out
+
+
+@pytest.mark.parametrize("name", ["gptj6b-train-s2048", "gptj6b-serve-poisson",
+                                  "mpt7b8k-serve-offline"])
+def test_a_traced_run_on_the_cpu_carries_the_spans(name):
+    """A traced run's record carries the program's spans inside its
+    window and the timeline; the span readers read it, and read nothing
+    in an untraced run's record."""
+    cell, out = _tiny_run(name, True)
+    rec = out["record"]
+    tl, made = rec["timeline"], rec["spans"]
+    w0, w1 = tl.window
+    # the wall clock against the monotonic one over a second's window
+    assert abs(rec["clock_drift_us"]) < 1000
+    names = {s.name for s in made}
+    kind = cell.traffic["kind"]
+    if kind == "train":
         assert names == set(telemetry.TRAIN_SPANS)
-        assert got["steps"] == out["attempted"]
+        assert spans.readings(tl, made, "train")["steps"] == out["attempted"]
+        # the CPU has no device operations: plant one a span, launched
+        # where the span runs, so that the update's share is read
+        parts = [s for s in made if s.name in (LOSS_AND_GRADS, SGD_UPDATE)
+                 and w0 <= s.start and s.end <= w1]
+        assert parts
+        rec = dict(rec, timeline=spans.Timeline(
+            window=tl.window, busy=trace._union([(s.start, s.end)
+                                                 for s in parts]),
+            ops=[(s.start, s.end, (s.start, s.start + 1)) for s in parts]))
+        want = 100.0 * sum(s.end - s.start for s in parts
+                           if s.name == SGD_UPDATE) / (
+            sum(s.end - s.start for s in parts))
+        assert harness.reader("sgd_update_share.train")(rec) \
+            == pytest.approx(want, rel=0.05)
     else:
         assert set(telemetry.SERVING_SPANS[:7]) <= names
-        assert got["iterations"] > 0 and got["host_turn_ms"] > 0
-    # the run's module is itself again
-    assert sys.modules[harness.driver(cell).run.__module__].profiled \
-        is trace.profiled
+        assert any(s.name == ITERATION and w0 <= s.start and s.end <= w1
+                   and s.args.get("seated", 0) > 0 for s in made)
+    for metric in SPAN_READERS[kind]:
+        value = harness.reader(metric)(rec)
+        assert value is not None and value > 0, metric
+    got = harness.read_metrics(cell.name, "per_layer", rec)
+    assert set(SPAN_READERS[kind]) <= set(got)
+    _, plain = _tiny_run(name, False)
+    assert not {"spans", "timeline", "clock_drift_us"} & set(plain["record"])
+    for metric in sum(SPAN_READERS.values(), []):
+        assert harness.reader(metric)(plain["record"]) is None, metric
 
 
 def test_clock_bounds_come_from_the_call_each_sync_waits_in():

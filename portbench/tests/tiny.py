@@ -28,9 +28,10 @@ def tiny_cell(name: str, seed: int = 2 ** 31 + 17, seconds: float = 1.0
                                max=24),
                    output=dict(dist="lognormal", median=5, sigma=0.6, min=2,
                                max=12),
-                   drain_s=10.0, warm_tokens=4)
+                   drain_s=60.0, warm_tokens=4)
         if mix["kind"] == "open":
-            mix["arrivals"] = dict(process="poisson", rate_per_s=30.0,
+            # the mix's own arrival process, at a toy rate
+            mix["arrivals"] = dict(mix["arrivals"], rate_per_s=30.0,
                                    lead_in_s=0.2)
         else:
             mix["requests"] = 20000

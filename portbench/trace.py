@@ -62,9 +62,14 @@ class DeviceTrace:
 
 
 @contextlib.contextmanager
-def profiled(enabled: bool) -> Iterator[Optional[object]]:
+def profiled(enabled: bool, tracer) -> Iterator[Optional[object]]:
     """``torch.profiler`` over CUDA activity and the calling thread's host
-    activity while ``enabled``, else nothing."""
+    activity while ``enabled``, else nothing. The port's ``tracer`` has
+    its clock anchor read again as the profiler starts, so that its spans
+    land on the profiler's clock (``Tracer.wall_ns``), and once more as it
+    stops: how far the wall clock moved against the monotonic one in
+    between is left on the profiler as ``clock_drift_ns``, and the start's
+    anchor kept."""
     if not enabled:
         yield None
         return
@@ -72,7 +77,13 @@ def profiled(enabled: bool) -> Iterator[Optional[object]]:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        tracer.reanchor()
+        start = tracer.anchor
         yield prof
+        tracer.reanchor()
+        prof.clock_drift_ns = ((tracer.anchor[0] - tracer.anchor[1])
+                               - (start[0] - start[1]))
+        tracer.anchor = start
 
 
 def window_span():

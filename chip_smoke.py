@@ -32,6 +32,15 @@ Phases, each fatal when it fails:
    plain versions at the stated shapes and tolerances, and their times at
    the training shape of each head width beside their bounds, the plain
    versions' times and one PyTorch library call's time;
+   The windowed kernels: K1 (with lse), K2 and K3 with the sparse
+   training cell's window (1024) at its attention shape (B2 H32 S8192
+   D128) against their plain versions with the same tolerances; with a
+   window as long as the sequence equal to the causal kernels bit for
+   bit; each one's time, windowed and causal, beside its bound at the
+   work of the pairs its mask admits; then one ``burnin.train_step`` of
+   the sparse model at Mellum2's widths (b1, s8192), whose loss must be
+   finite, which must drop no routed pair, and whose K1, K2 and K3 must
+   each launch once a layer;
    The LM head: its tensor-core route (``burnin.lm_head``, a bf16
    cuBLAS product with f32 output, and split-cotangent gradients) against
    the f32 product of the up-cast operands at the training shape, within
@@ -230,6 +239,16 @@ BWD_MEAN_REL = 1e-3
 # The plain backward materialises f32 [B, H, S, S] tensors; it runs over
 # groups of heads whose such tensor stays within this many bytes.
 PLAIN_GROUP_BYTES = 2 ** 31
+# The windowed kernels at the sparse training cell's attention (Mellum2:
+# 32 query heads of 128, the keys and values repeated to them, batch 2,
+# seq 8192) and its sliding window, checked with the tolerances above
+# and timed beside the causal kernels at the same shape.
+WINDOW_SHAPE = (2, 32, 8192, 128)  # B, H, S, D
+WINDOW = 1024
+# One step of the sparse model at Mellum2's widths (one period: three
+# windowed layers and a full one) at batch 1, seq 8192: K1, K2 and K3
+# launch once a layer.
+SPARSE_BATCH, SPARSE_SEQ = 1, 8192
 # The training drive: burnin.standard_config's width at seq 8192, batch 1
 # (the reference's long-context row), a few SGD steps.
 TRAIN_SEQ = 8192
@@ -368,11 +387,13 @@ def build_phase() -> None:
         counts = sass_counts(str(_build.library_path(name)), ops)
         kernels = {k: v for k, v in counts.items() if f"{name}_kernel" in k}
         for kernel, n in kernels.items():
-            # the mangled name holds the instance: ...kernelILi256ELi64E...
-            args = re.findall(r"Li(\d+)E", kernel.split("_kernel", 1)[1])
+            # the mangled name holds the instance:
+            # ...kernelILi256ELi64ELb0E... (Lb: the window flag)
+            args = re.findall(r"L[ib](\d+)E",
+                              kernel.split("_kernel", 1)[1])
             print(f"  {name}_kernel<{', '.join(args)}> SASS: "
                   + ", ".join(f"{op} x{n[op]}" for op in ops))
-        check(len(kernels) == 2  # D = 128 and 256
+        check(len(kernels) == 4  # D = 128 and 256, causal and windowed
               and all(n[op] > 0 for n in kernels.values() for op in ops),
               f"{name} instances without wgmma or TMA loads: {kernels}")
 
@@ -595,6 +616,158 @@ def backward_phase(torch, acc) -> dict:
         del sdpa, qt, kt, vt, dot, q, k, v, do, o, lse, di, inputs
         torch.cuda.empty_cache()
     return out
+
+
+def admitted_pairs(seq: int, window: int) -> int:
+    """(query, key) pairs a head's mask admits: causal, or within
+    ``window`` keys back (the query's own included)."""
+    if not window or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
+def window_phase(torch, acc) -> dict:
+    """K1 (with lse), K2 and K3 with ``WINDOW`` at ``WINDOW_SHAPE`` against
+    their plain versions; a window as long as the sequence against the
+    causal kernels, bit for bit; each kernel's time, windowed and causal,
+    with TFLOP/s and bound at the work of the pairs each mask admits;
+    then one step of the sparse model at Mellum2's widths, whose K1, K2
+    and K3 must launch once a layer. Returns the records by kernel and
+    that step's launch counts."""
+    from tpu_cluster_torch.kernels import flash_attention as fa
+    from tpu_cluster_torch.workloads import burnin, sparse
+
+    b, h, s, d = WINDOW_SHAPE
+    tag = f"B{b} H{h} S{s} D{d} window {WINDOW}"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+
+    def calls(window):
+        o, lse = fa.flash_attention_with_lse(q, k, v, scale, window)
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        inputs = (q, k, v, do, lse, di)
+        return {"flash_attn_fwd": lambda: fa.flash_attention_with_lse(
+                    q, k, v, scale, window),
+                "flash_attn_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+                    *inputs, scale, window),
+                "flash_attn_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+                    *inputs, scale, window)}, (o, lse), inputs
+
+    windowed, (o, lse), inputs = calls(WINDOW)
+    dk, dv = windowed["flash_attn_bwd_dkv"]()
+    dq = windowed["flash_attn_bwd_dq"]()
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(x).all()) for x in (o, lse, dq, dk, dv)),
+          f"windowed kernel output not finite at {tag}")
+    ref_o, ref_lse = by_heads(
+        torch, lambda *a: fa.flash_attention_reference(*a, True, WINDOW),
+        (q, k, v), scale)
+    err = (o.float() - ref_o.float()).abs()
+    o_max, o_mean = err.max().item(), err.mean().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    print(f"flash_attn_fwd {tag}: o max_abs_err {o_max:.3e} (tol "
+          f"{KERNEL_MAX_ABS}), mean_abs_err {o_mean:.3e} (tol "
+          f"{KERNEL_MEAN_ABS}); lse max_abs_err {lse_err:.3e} (tol "
+          f"{LSE_ATOL})")
+    check(o_max <= KERNEL_MAX_ABS and o_mean <= KERNEL_MEAN_ABS
+          and lse_err <= LSE_ATOL,
+          f"windowed K1 disagrees with its plain version at {tag}")
+    del ref_o, ref_lse, err
+    errs = {"flash_attn_fwd": o_max}
+    ref_dk, ref_dv = by_heads(
+        torch, lambda *a: fa.flash_attention_bwd_dkv_reference(*a, WINDOW),
+        inputs, scale)
+    ref_dq = by_heads(
+        torch, lambda *a: fa.flash_attention_bwd_dq_reference(*a, WINDOW),
+        inputs, scale)
+    for name, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                            ("dv", dv, ref_dv)):
+        errs[name], max_rel, mean_rel = rel_errors(got, want)
+        print(f"flash_attn_bwd {name} {tag}: max_abs/max|plain| "
+              f"{max_rel:.3e} (tol {BWD_MAX_REL}), mean_abs/mean|plain| "
+              f"{mean_rel:.3e} (tol {BWD_MEAN_REL})")
+        check(max_rel <= BWD_MAX_REL and mean_rel <= BWD_MEAN_REL,
+              f"windowed {name} disagrees with its plain version at {tag}")
+    errs["flash_attn_bwd_dkv"] = max(errs["dk"], errs["dv"])
+    errs["flash_attn_bwd_dq"] = errs["dq"]
+    del ref_dk, ref_dv, ref_dq, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    def outs(fn):
+        got = fn()
+        return got if isinstance(got, tuple) else (got,)
+
+    causal, _, _ = calls(0)
+    whole, _, _ = calls(s)
+    for name in causal:
+        same = all(torch.equal(x, y) for x, y in
+                   zip(outs(causal[name]), outs(whole[name])))
+        print(f"{name}: window {s} equals causal bit for bit: {same}")
+        check(same, f"{name} with window {s} differs from causal")
+    del whole
+
+    tensor_bytes = b * s * h * d * 2.0
+    row_bytes = b * h * s * 4.0
+    # products and [B, S, H, D] tensors moved, and f32 rows, as the
+    # backward phase counts them
+    work = {"flash_attn_fwd": (2, 4, 1), "flash_attn_bwd_dkv": (4, 6, 2),
+            "flash_attn_bwd_dq": (3, 5, 2)}
+    records = {}
+    for name, (n_products, n_tensors, n_rows) in work.items():
+        records[name] = {"shape": [b, h, s, d], "window": WINDOW,
+                         "max_abs_err": errs[name]}
+        for label, window, table in (("window", WINDOW, windowed),
+                                     ("causal", 0, causal)):
+            flops = n_products * 2.0 * b * h * d * admitted_pairs(s, window)
+            ms = cuda_ms(torch, table[name], warmup=3, reps=20)
+            flop_ms = flops / (acc.peak_bf16_tflops * 1e12) * 1e3
+            byte_ms = (n_tensors * tensor_bytes + n_rows * row_bytes) \
+                / acc.hbm_bytes_per_s * 1e3
+            records[name][label] = {
+                "ms": ms, "tflops": flops / ms / 1e9,
+                "bound_ms": max(flop_ms, byte_ms),
+                "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+            print(f"{name} B{b} H{h} S{s} D{d} {label}: kernel {ms:.3f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s at admitted pairs), "
+                  f"bound {records[name][label]['bound_ms']:.3f} ms "
+                  f"({records[name][label]['bound_by']})")
+    del q, k, v, do, o, lse, inputs, windowed, causal
+    torch.cuda.empty_cache()
+
+    cfg = sparse.SparseConfig(vocab=98304, d_model=2304, n_heads=32,
+                              n_kv_heads=4, d_head=128, n_experts=64,
+                              top_k=8, d_expert=896, window=WINDOW)
+    layers = len(cfg.layer_types)
+    dev = torch.device("cuda")
+    params = sparse.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(SEED + 5), dev)
+    tokens = torch.randint(0, cfg.vocab, (SPARSE_BATCH, SPARSE_SEQ),
+                           generator=gen, device=dev)
+    batch = (tokens, torch.roll(tokens, -1, 1))
+    counters = sparse.RouteCounters(layers, cfg.n_experts, dev)
+    kernels = (fa.flash_attention, fa.flash_attention_bwd_dkv,
+               fa.flash_attention_bwd_dq)
+    for fn in kernels:  # count the sparse step only
+        fn.launches = 0
+    _, loss = burnin.train_step(params, batch, cfg, counters=counters)
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in kernels]
+    dropped = counters.read()["dropped_tokens"]
+    print(f"sparse training: one step at Mellum2's widths ({layers} layers, "
+          f"{cfg.layer_types}), b{SPARSE_BATCH} s{SPARSE_SEQ}: loss "
+          f"{float(loss):.4f}, dropped pairs {dropped}; launches K1 "
+          f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
+    check(math.isfinite(float(loss)), f"sparse step loss {float(loss)}")
+    check(dropped == 0, f"sparse step dropped {dropped} routed pairs")
+    check(launches == [layers] * 3,
+          f"sparse step launches K1/K2/K3 {launches}, expected {layers} "
+          f"each (one a layer)")
+    del params, tokens, batch, loss, counters
+    torch.cuda.empty_cache()
+    return {"records": records, "launches": launches}
 
 
 def bf16_ulp(x: float) -> float:
@@ -2241,6 +2414,7 @@ def run_phases(torch, traces: str) -> int:
     build_phase()
     forward = flash_phase(torch, acc)
     backward = backward_phase(torch, acc)
+    windowed = window_phase(torch, acc)
     head_phase(torch)
     served = serving_phase(torch)
     fleet = fleet_phase(torch, traces)
@@ -2277,10 +2451,14 @@ def run_phases(torch, traces: str) -> int:
         by_path["shardbench"] = bench["launches"][i]
         by_path["crossover"] = cross[256][i]
         record["launches"] = sum(by_path.values())
-        # d_head 128 runs on the main paths only in the crossover
+        # d_head 128 runs in the crossover and in the sparse model, whose
+        # windowed layers run the windowed instances
         narrow = record["head_dim_128"]
-        narrow["launches_by_path"] = {"crossover": cross[128][i]}
-        narrow["launches"] = cross[128][i]
+        narrow["launches_by_path"] = {
+            "crossover": cross[128][i],
+            "sparse_training": windowed["launches"][i]}
+        narrow["launches"] = sum(narrow["launches_by_path"].values())
+        narrow["window"] = windowed["records"][record["name"]]
     print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

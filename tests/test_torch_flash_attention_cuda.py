@@ -98,10 +98,11 @@ def _inputs(dev, shape, seed):
             for _ in range(4)]
 
 
-def _rel_err(got, want):
+def _rel_err(got, want, floor=0.0):
     err = (got.float() - want.float()).abs()
-    return (err.max().item() / want.float().abs().max().item(),
-            err.mean().item() / want.float().abs().mean().item())
+    return (err.max().item() / max(want.float().abs().max().item(), floor),
+            err.mean().item() / max(want.float().abs().mean().item(),
+                                    floor))
 
 
 @pytest.mark.cuda
@@ -251,3 +252,42 @@ def test_crossover_check_point_flash_agrees_with_xla(width):
 
     result = crossover.check_point(width, _card())
     assert result["ok"], result
+
+
+# (batch, seq, heads, head_dim, window): windows inside one tile, across
+# tile edges, as long as the sequence and past it; S = 576 puts K1's and
+# K3's last 128-row query tile half past S.
+WINDOWED = [(2, 512, 4, 128, 1), (2, 512, 4, 128, 63), (2, 512, 4, 128, 64),
+            (2, 512, 4, 128, 65), (2, 512, 4, 128, 200),
+            (2, 512, 4, 128, 512), (1, 576, 3, 256, 100),
+            (1, 576, 3, 256, 128), (2, 576, 4, 128, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,seq,heads,head_dim,window", WINDOWED)
+def test_windowed_kernels_match_plain_versions(batch, seq, heads, head_dim,
+                                               window):
+    dev = _card()
+    scale = head_dim ** -0.5
+    q, k, v, do = _inputs(dev, (batch, seq, heads, head_dim), 5)
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale, window)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, scale, True, window)
+    err = (out.float() - ref.float()).abs()
+    assert err.max().item() <= MAX_ABS and err.mean().item() <= MEAN_ABS
+    assert (lse - ref_lse).abs().max().item() <= LSE_ATOL
+    di = (ref.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, di, scale,
+                                        window)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, di, scale, window)
+    torch.cuda.synchronize()
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, do, ref_lse, di, scale, window)
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, do, ref_lse, di,
+                                                  scale, window)
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        # at window 1 each query sees itself alone and dq is 0 up to the
+        # order of two f32 sums: relative to 1 there
+        max_rel, mean_rel = _rel_err(got, want, floor=1.0)
+        assert max_rel <= BWD_MAX_REL and mean_rel <= BWD_MEAN_REL, \
+            (name, max_rel, mean_rel)

@@ -1,5 +1,6 @@
 // Causal flash-attention backward, dK and dV, for Hopper (sm_90a): bf16 in,
-// bf16 out, f32 accumulation; TMA-fed, warp-specialised, wgmma-based.
+// bf16 out, f32 accumulation; TMA-fed, warp-specialised, wgmma-based; with
+// an optional sliding window.
 //
 // Replaces the TPU kernel upstream JAX's
 // jax/experimental/pallas/ops/tpu/flash_attention.py::_flash_attention_bwd_dkv
@@ -73,6 +74,13 @@
 // products of one query tile do not overlap the next tile's (each waits
 // for its wgmma before the exp or dS step), warpgroup 2 idles while
 // warpgroup 1 computes P^T, and CTAs are not persistent.
+//
+// Window (kWindow, a template flag; window > 0 at the entry point): query i
+// sees key j iff 0 <= i - j < window. The query walk ends at the last tile
+// that reaches the key tile (its last key + window - 1), and only the tiles
+// the window's edge crosses are masked (P^T = 0 where query >= key +
+// window; dS^T takes warpgroup 1's P^T, so it is zero there too). The
+// causal instantiation compiles to the kernel without the window.
 
 #include "hopper_common.cuh"
 
@@ -112,7 +120,7 @@ struct Layout {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
@@ -124,7 +132,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                               __nv_bfloat16* __restrict__ dv, int seq,
                               int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
                               int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
-                              float sm_scale) {
+                              float sm_scale, int window) {
   using L = Layout<D>;
   constexpr int kPanels = D / kPanel;
   extern __shared__ unsigned char smem_raw[];
@@ -142,8 +150,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kv_tile = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  // Query tiles from the diagonal (kv_tile) to S.
-  const int n_q = seq / kBlockM - kv_tile;
+  // Query tiles from the diagonal (kv_tile) to S or, with a window, to the
+  // tile of the last query that sees the tile's last key.
+  const int n_q =
+      kWindow ? min(seq / kBlockM,
+                    ((kv_tile + 1) * kBlockN - 1 + window - 1) / kBlockM + 1) -
+                    kv_tile
+              : seq / kBlockM - kv_tile;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -250,13 +263,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       if (dv_group) {
         // P^T = exp(s - lse), zero where key > query (only the diagonal
-        // tile, jj == 0, has such pairs).
+        // tile, jj == 0, has such pairs) and, with a window, where query >=
+        // key + window (only tiles its edge crosses).
+        const bool edge =
+            kWindow && q0 + kBlockM - 1 >= kv_tile * kBlockN + window;
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float p = exp2f(fmaf(x[4 * n + e], scale_log2, -st[2 * n + (e & 1)]));
             if (jj == 0 && key0 + (e >> 1) * 8 > q0 + n * 8 + 2 * t + (e & 1)) {
+              p = 0.f;
+            }
+            if (kWindow && edge &&
+                q0 + n * 8 + 2 * t + (e & 1) >= key0 + (e >> 1) * 8 + window) {
               p = 0.f;
             }
             x[4 * n + e] = p;
@@ -323,9 +343,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 cudaError_t launch(const void* const* ptr, int batch, int seq, int heads,
-                   const int64_t* st, float sm_scale, cudaStream_t stream) {
+                   const int64_t* st, float sm_scale, int window,
+                   cudaStream_t stream) {
   using L = Layout<D>;
   static_assert(L::kAlloc <= 232448, "over the 227 KB a block can use");
   // q, k, v, dO: every box is 64 rows.
@@ -338,17 +359,28 @@ cudaError_t launch(const void* const* ptr, int batch, int seq, int heads,
   }
   // Above 48 KB a launch is refused unless the kernel opts in.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_bwd_dkv_kernel<D>,
+      flash_attn_bwd_dkv_kernel<D, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (err != cudaSuccess) return err;
   const dim3 grid(seq / kBlockN, heads, batch);
-  flash_attn_bwd_dkv_kernel<D><<<grid, kThreads, L::kAlloc, stream>>>(
+  flash_attn_bwd_dkv_kernel<D, kWindow><<<grid, kThreads, L::kAlloc, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(ptr[4]),
       static_cast<const float*>(ptr[5]),
       static_cast<__nv_bfloat16*>(const_cast<void*>(ptr[6])),
       static_cast<__nv_bfloat16*>(const_cast<void*>(ptr[7])), seq, st[12],
-      st[13], st[14], st[15], st[16], st[17], sm_scale);
+      st[13], st[14], st[15], st[16], st[17], sm_scale, window);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_any(const void* const* ptr, int batch, int seq, int heads,
+                       const int64_t* st, float sm_scale, int window,
+                       cudaStream_t stream) {
+  if (window > 0) {
+    return launch<D, true>(ptr, batch, seq, heads, st, sm_scale, window,
+                           stream);
+  }
+  return launch<D, false>(ptr, batch, seq, heads, st, sm_scale, 0, stream);
 }
 
 }  // namespace
@@ -361,6 +393,8 @@ extern "C" {
 // base pointers and strides of q, k, v and dO 16-byte aligned (TMA). lse
 // and di are contiguous f32 [batch, heads, seq]. seq must be a multiple of
 // 64 and head_dim 128 or 256; anything else returns cudaErrorInvalidValue.
+// `window` 0 is causal attention; window > 0 lets query i see key j iff
+// 0 <= i - j < window.
 int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* di,
                        void* dk, void* dv, int batch, int seq, int heads,
@@ -369,8 +403,10 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                        int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
                        int64_t o_sh, int64_t dk_sb, int64_t dk_ss,
                        int64_t dk_sh, int64_t dv_sb, int64_t dv_ss,
-                       int64_t dv_sh, float sm_scale, void* stream) {
-  if (seq <= 0 || seq % kBlockN != 0 || batch <= 0 || heads <= 0) {
+                       int64_t dv_sh, float sm_scale, void* stream,
+                       int window) {
+  if (seq <= 0 || seq % kBlockN != 0 || batch <= 0 || heads <= 0 ||
+      window < 0) {
     return cudaErrorInvalidValue;
   }
   const void* ptr[8] = {q, k, v, dout, lse, di, dk, dv};
@@ -380,9 +416,9 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 128:
-      return launch<128>(ptr, batch, seq, heads, st, sm_scale, s);
+      return launch_any<128>(ptr, batch, seq, heads, st, sm_scale, window, s);
     case 256:
-      return launch<256>(ptr, batch, seq, heads, st, sm_scale, s);
+      return launch_any<256>(ptr, batch, seq, heads, st, sm_scale, window, s);
     default:
       return cudaErrorInvalidValue;
   }

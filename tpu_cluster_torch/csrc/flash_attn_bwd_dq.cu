@@ -1,5 +1,6 @@
 // Causal flash-attention backward, dQ, for Hopper (sm_90a): bf16 in, bf16
-// out, f32 accumulation; TMA-fed, warp-specialised, wgmma-based.
+// out, f32 accumulation; TMA-fed, warp-specialised, wgmma-based; with an
+// optional sliding window.
 //
 // Replaces the TPU kernel upstream JAX's
 // jax/experimental/pallas/ops/tpu/flash_attention.py::_flash_attention_bwd_dq
@@ -69,6 +70,13 @@
 // What the design still leaves on the table: the dS and dQ of tile j do not
 // overlap the S and dP of tile j + 1 within a warpgroup, the consumers are
 // not ping-pong scheduled, and CTAs are not persistent.
+//
+// Window (kWindow, a template flag; window > 0 at the entry point): query i
+// sees key j iff 0 <= i - j < window. As in K1, the KV walk starts at the
+// first tile the tile's first row reaches; a consumer skips the products of
+// a tile wholly before its rows' window (as of one wholly above their
+// diagonal), and only tiles the window's edge crosses are masked. The causal
+// instantiation compiles to the kernel without the window.
 
 #include "hopper_common.cuh"
 
@@ -107,7 +115,7 @@ struct Layout {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-template <int D, int kVStages>
+template <int D, int kVStages, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -117,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const float* __restrict__ di,
                              __nv_bfloat16* __restrict__ dq, int seq,
                              int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
-                             float sm_scale) {
+                             float sm_scale, int window) {
   using L = Layout<D, kVStages>;
   constexpr int kPanels = D / kPanel;
   extern __shared__ unsigned char smem_raw[];
@@ -140,6 +148,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // KV tiles up to the diagonal of the tile's last row, and within S.
   const int n_kv = min(((q_tile + 1) * kBlockM + kBlockN - 1) / kBlockN,
                        seq / kBlockN);
+  // With a window, from the tile holding the first key the tile's first
+  // row sees; the rings count i = j - j_lo.
+  const int j_lo =
+      kWindow ? max(q_tile * kBlockM - window + 1, 0) / kBlockN : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -170,11 +182,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_load_4d(sdO + p * kBlockM * kPanelRowBytes, &tm_do, do_full,
                     p * kPanel, h, q_tile * kBlockM, b);
       }
-      for (int j = 0; j < n_kv; ++j) {
+      for (int j = j_lo; j < n_kv; ++j) {
+        const int i = j - j_lo;
         // Each slot's previous tile released by every consumer.
-        const int sk = j % kKStages;
-        if (j >= kKStages) {
-          mbar_wait(k_empty + 8 * sk, ((j / kKStages) - 1) & 1);
+        const int sk = i % kKStages;
+        if (i >= kKStages) {
+          mbar_wait(k_empty + 8 * sk, ((i / kKStages) - 1) & 1);
         }
         const uint32_t k_dst = sK + sk * L::kKVBytes;
         mbar_arrive_expect_tx(k_full + 8 * sk, L::kKVBytes);
@@ -182,9 +195,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load_4d(k_dst + p * kBlockN * kPanelRowBytes, &tm_k,
                       k_full + 8 * sk, p * kPanel, h, j * kBlockN, b);
         }
-        const int sv = j % kVStages;
-        if (j >= kVStages) {
-          mbar_wait(v_empty + 8 * sv, ((j / kVStages) - 1) & 1);
+        const int sv = i % kVStages;
+        if (i >= kVStages) {
+          mbar_wait(v_empty + 8 * sv, ((i / kVStages) - 1) & 1);
         }
         const uint32_t v_dst = sV + sv * L::kKVBytes;
         mbar_arrive_expect_tx(v_full + 8 * sv, L::kKVBytes);
@@ -236,15 +249,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(q_full, 0);
     mbar_wait(do_full, 0);
 
-    for (int j = 0; j < n_kv; ++j) {
-      const int sk = j % kKStages;
-      const int sv = j % kVStages;
-      const uint32_t k_parity = (j / kKStages) & 1;
-      const uint32_t v_parity = (j / kVStages) & 1;
+    for (int j = j_lo; j < n_kv; ++j) {
+      const int i = j - j_lo;
+      const int sk = i % kKStages;
+      const int sv = i % kVStages;
+      const uint32_t k_parity = (i / kKStages) & 1;
+      const uint32_t v_parity = (i / kVStages) & 1;
       const uint64_t k_slot = (sk * L::kKVBytes) >> 4;
       const uint64_t v_slot = (sv * L::kKVBytes) >> 4;
 
-      if (!active || j * kBlockN > first_row + kRowsPerConsumer - 1) {
+      if (!active || j * kBlockN > first_row + kRowsPerConsumer - 1 ||
+          (kWindow && (j + 1) * kBlockN - 1 + window <= first_row)) {
         // Nothing of this tile reaches this consumer's rows.
         mbar_wait(k_full + 8 * sk, k_parity);
         mbar_wait(v_full + 8 * sv, v_parity);
@@ -285,8 +300,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_operands(sc);
 
       // P = exp(s - lse), zero where key > row (only tiles the diagonal
-      // crosses have such pairs).
+      // crosses have such pairs) and, with a window, where key <= row -
+      // window (only tiles its edge crosses).
       const bool diag = (j + 1) * kBlockN - 1 > first_row;
+      const bool edge =
+          kWindow && j * kBlockN + window <= first_row + kRowsPerConsumer - 1;
 #pragma unroll
       for (int n = 0; n < kBlockN / 8; ++n) {
 #pragma unroll
@@ -294,6 +312,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           float p = exp2f(fmaf(sc[4 * n + e], scale_log2, -lse_r[e >> 1]));
           if (diag && j * kBlockN + n * 8 + 2 * t + (e & 1) >
                           row0 + (e >> 1) * 8) {
+            p = 0.f;
+          }
+          if (kWindow && edge &&
+              j * kBlockN + n * 8 + 2 * t + (e & 1) + window <=
+                  row0 + (e >> 1) * 8) {
             p = 0.f;
           }
           sc[4 * n + e] = p;
@@ -346,9 +369,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D, int kVStages>
+template <int D, int kVStages, bool kWindow>
 cudaError_t launch(const void* const* ptr, int batch, int seq, int heads,
-                   const int64_t* st, float sm_scale, cudaStream_t stream) {
+                   const int64_t* st, float sm_scale, int window,
+                   cudaStream_t stream) {
   using L = Layout<D, kVStages>;
   static_assert(L::kAlloc <= 232448, "over the 227 KB a block can use");
   // q, k, v, dO: Q and dO in 128-row boxes, K and V in 64-row boxes.
@@ -362,17 +386,29 @@ cudaError_t launch(const void* const* ptr, int batch, int seq, int heads,
   }
   // Above 48 KB a launch is refused unless the kernel opts in.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_bwd_dq_kernel<D, kVStages>,
+      flash_attn_bwd_dq_kernel<D, kVStages, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_attn_bwd_dq_kernel<D, kVStages><<<grid, kThreads, L::kAlloc,
-                                          stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(ptr[4]),
-      static_cast<const float*>(ptr[5]),
-      static_cast<__nv_bfloat16*>(const_cast<void*>(ptr[6])), seq, st[12],
-      st[13], st[14], sm_scale);
+  flash_attn_bwd_dq_kernel<D, kVStages, kWindow>
+      <<<grid, kThreads, L::kAlloc, stream>>>(
+          maps[0], maps[1], maps[2], maps[3],
+          static_cast<const float*>(ptr[4]), static_cast<const float*>(ptr[5]),
+          static_cast<__nv_bfloat16*>(const_cast<void*>(ptr[6])), seq, st[12],
+          st[13], st[14], sm_scale, window);
   return cudaGetLastError();
+}
+
+template <int D, int kVStages>
+cudaError_t launch_any(const void* const* ptr, int batch, int seq, int heads,
+                       const int64_t* st, float sm_scale, int window,
+                       cudaStream_t stream) {
+  if (window > 0) {
+    return launch<D, kVStages, true>(ptr, batch, seq, heads, st, sm_scale,
+                                     window, stream);
+  }
+  return launch<D, kVStages, false>(ptr, batch, seq, heads, st, sm_scale, 0,
+                                    stream);
 }
 
 }  // namespace
@@ -385,6 +421,8 @@ extern "C" {
 // pointers and strides of q, k, v and dO 16-byte aligned (TMA). lse and di
 // are contiguous f32 [batch, heads, seq]. seq must be a multiple of 64 and
 // head_dim 128 or 256; anything else returns cudaErrorInvalidValue.
+// `window` 0 is causal attention; window > 0 lets query i see key j iff
+// 0 <= i - j < window.
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* di,
                       void* dq, int batch, int seq, int heads, int head_dim,
@@ -392,8 +430,9 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                       int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                       int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                       int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
-                      float sm_scale, void* stream) {
-  if (seq <= 0 || seq % kBlockN != 0 || batch <= 0 || heads <= 0) {
+                      float sm_scale, void* stream, int window) {
+  if (seq <= 0 || seq % kBlockN != 0 || batch <= 0 || heads <= 0 ||
+      window < 0) {
     return cudaErrorInvalidValue;
   }
   const void* ptr[7] = {q, k, v, dout, lse, di, dq};
@@ -402,9 +441,11 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 128:
-      return launch<128, 2>(ptr, batch, seq, heads, st, sm_scale, s);
+      return launch_any<128, 2>(ptr, batch, seq, heads, st, sm_scale, window,
+                                s);
     case 256:
-      return launch<256, 1>(ptr, batch, seq, heads, st, sm_scale, s);
+      return launch_any<256, 1>(ptr, batch, seq, heads, st, sm_scale, window,
+                                s);
     default:
       return cudaErrorInvalidValue;
   }

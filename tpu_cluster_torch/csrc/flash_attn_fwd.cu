@@ -1,5 +1,6 @@
 // Causal flash-attention forward for Hopper (sm_90a): bf16 in, bf16 out,
-// f32 softmax statistics; TMA-fed, warp-specialised, wgmma-based.
+// f32 softmax statistics; TMA-fed, warp-specialised, wgmma-based; with an
+// optional sliding window.
 //
 // Replaces the TPU kernel upstream JAX's
 // jax/experimental/pallas/ops/tpu/flash_attention.py::_flash_attention_impl
@@ -58,6 +59,15 @@
 // persistent (one tile's epilogue does not overlap the next tile's loads),
 // no thread block clusters share K/V loads, and O is stored from registers
 // rather than through shared memory and a TMA store.
+//
+// Window (kWindow, a template flag; window > 0 at the entry point): query i
+// sees key j iff 0 <= i - j < window. The KV loop starts at the first tile
+// the tile's first row reaches, so tiles wholly before the window are
+// neither loaded nor computed; only tiles the window's edge crosses are
+// masked. A row may then find every key of its first tile masked, so its
+// running max stays -inf there and the exponent is taken against 0, which
+// gives P = 0 and alpha = 0 instead of NaN. The causal instantiation
+// (kWindow false) compiles to the kernel without the window.
 
 #include "hopper_common.cuh"
 
@@ -94,14 +104,15 @@ struct Layout {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-template <int D, int kBlockN>
+template <int D, int kBlockN, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int seq, int64_t o_sb,
-                          int64_t o_ss, int64_t o_sh, float scale_log2) {
+                          int64_t o_ss, int64_t o_sh, float scale_log2,
+                          int window) {
   using L = Layout<D, kBlockN>;
   constexpr int kPanels = D / kPanel;
   extern __shared__ unsigned char smem_raw[];
@@ -121,6 +132,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   // KV tiles up to the diagonal of the tile's last row, and within S.
   const int n_kv = min(((q_tile + 1) * kBlockM + kBlockN - 1) / kBlockN,
                        (seq + kBlockN - 1) / kBlockN);
+  // With a window, from the tile holding the first key the tile's first
+  // row sees; producer and consumers walk j = j_lo .. n_kv - 1, and the
+  // ring counts i = j - j_lo.
+  const int j_lo =
+      kWindow ? max(q_tile * kBlockM - window + 1, 0) / kBlockN : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -142,10 +158,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_load_4d(sQ + p * kBlockM * kPanelRowBytes, &tm_q, q_full,
                     p * kPanel, h, q_tile * kBlockM, b);
       }
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % kStages;
-        // the stage's previous tile, j - kStages, released by every consumer
-        if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
+      for (int j = j_lo; j < n_kv; ++j) {
+        const int i = j - j_lo;
+        const int s = i % kStages;
+        // the stage's previous tile, i - kStages, released by every consumer
+        if (i >= kStages) mbar_wait(empty + 8 * s, ((i / kStages) - 1) & 1);
         const uint32_t k_dst = sK + s * L::kKVBytes;
         const uint32_t v_dst = sV + s * L::kKVBytes;
         mbar_arrive_expect_tx(k_full + 8 * s, L::kKVBytes);
@@ -191,9 +208,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint64_t desc_v = wgmma_desc(sV, kBlockN * kPanelRowBytes, 1024);
     mbar_wait(q_full, 0);
 
-    for (int j = 0; j < n_kv; ++j) {
-      const int s = j % kStages;
-      const uint32_t parity = (j / kStages) & 1;
+    for (int j = j_lo; j < n_kv; ++j) {
+      const int i = j - j_lo;
+      const int s = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
       const uint64_t stage = (s * L::kKVBytes) >> 4;
 
       // S = Q K^T: both K-major, 16 columns of D a step; step kk lies in
@@ -215,8 +233,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_operands(sc);
 
       // Mask the tiles the diagonal crosses (key > row -> -inf; keys past S
-      // are past every row < S), then the running max.
+      // are past every row < S) and, with a window, the tiles its edge
+      // crosses (key <= row - window -> -inf), then the running max.
       const bool diag = (j + 1) * kBlockN - 1 > first_row;
+      const bool edge =
+          kWindow && j * kBlockN + window <= first_row + kRowsPerConsumer - 1;
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < kBlockN / 8; ++n) {
@@ -226,6 +247,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (diag) {
             const int key = j * kBlockN + n * 8 + 2 * t + (e & 1);
             if (key > row0 + (e >> 1) * 8) x = -INFINITY;
+          }
+          if (kWindow && edge) {
+            const int key = j * kBlockN + n * 8 + 2 * t + (e & 1);
+            if (key + window <= row0 + (e >> 1) * 8) x = -INFINITY;
           }
           sc[4 * n + e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -237,12 +262,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        // Every row (also a zero-filled one past S) has key 0 <= row
+        // Causal: every row (also a zero-filled one past S) has key 0 <= row
         // unmasked in tile 0, so m_new is finite from there on; a row
-        // wholly masked in a later tile keeps m and gets P = 0.
+        // wholly masked in a later tile keeps m and gets P = 0. Windowed:
+        // a row may be wholly masked in its first tiles, where m_new is
+        // -inf; the exponents are then taken against 0 (P = 0, alpha = 0).
         m_new[r] = fmaxf(m_run[r], mx[r] * scale_log2);
-        alpha[r] = exp2f(m_run[r] - m_new[r]);
-        m_run[r] = m_new[r];
+        if (kWindow) {
+          const float m_use = m_new[r] == -INFINITY ? 0.f : m_new[r];
+          alpha[r] = exp2f(m_run[r] - m_use);
+          m_run[r] = m_new[r];
+          m_new[r] = m_use;
+        } else {
+          alpha[r] = exp2f(m_run[r] - m_new[r]);
+          m_run[r] = m_new[r];
+        }
       }
       // P = exp(s - m) in f32; the denominator sums the f32 values, P V
       // takes them rounded to bf16. The accumulator of 8-column tiles 2kk
@@ -322,10 +356,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D, int kBlockN>
+template <int D, int kBlockN, bool kWindow>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int batch, int seq, int heads,
-                   const int64_t* st, float sm_scale, cudaStream_t stream) {
+                   const int64_t* st, float sm_scale, int window,
+                   cudaStream_t stream) {
   using L = Layout<D, kBlockN>;
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
@@ -337,14 +372,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   // Above 48 KB a launch is refused unless the kernel opts in.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_fwd_kernel<D, kBlockN>,
+      flash_attn_fwd_kernel<D, kBlockN, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_attn_fwd_kernel<D, kBlockN><<<grid, kThreads, L::kAlloc, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, seq,
-      st[9], st[10], st[11], sm_scale * kLog2e);
+  flash_attn_fwd_kernel<D, kBlockN, kWindow>
+      <<<grid, kThreads, L::kAlloc, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, seq,
+          st[9], st[10], st[11], sm_scale * kLog2e, window);
   return cudaGetLastError();
+}
+
+template <int D, int kBlockN>
+cudaError_t launch_any(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int batch, int seq, int heads,
+                       const int64_t* st, float sm_scale, int window,
+                       cudaStream_t stream) {
+  if (window > 0) {
+    return launch<D, kBlockN, true>(q, k, v, o, lse, batch, seq, heads, st,
+                                    sm_scale, window, stream);
+  }
+  return launch<D, kBlockN, false>(q, k, v, o, lse, batch, seq, heads, st,
+                                   sm_scale, 0, stream);
 }
 
 }  // namespace
@@ -357,14 +406,15 @@ extern "C" {
 // 16-byte aligned (TMA). seq must be a multiple of 64 and head_dim 128 or
 // 256; anything else returns cudaErrorInvalidValue. `lse` is null (nothing
 // written) or a contiguous f32 [batch, heads, seq] buffer that receives
-// each row's logsumexp of the scaled scores.
+// each row's logsumexp of the scaled scores. `window` 0 is causal
+// attention; window > 0 lets query i see key j iff 0 <= i - j < window.
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    void* lse, int batch, int seq, int heads, int head_dim,
                    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                    int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                    int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                   float sm_scale, void* stream) {
-  if (seq <= 0 || seq % 64 != 0 || batch <= 0 || heads <= 0) {
+                   float sm_scale, void* stream, int window) {
+  if (seq <= 0 || seq % 64 != 0 || batch <= 0 || heads <= 0 || window < 0) {
     return cudaErrorInvalidValue;
   }
   const int64_t st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
@@ -372,11 +422,11 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 128:
-      return launch<128, 128>(q, k, v, o, static_cast<float*>(lse), batch,
-                              seq, heads, st, sm_scale, s);
+      return launch_any<128, 128>(q, k, v, o, static_cast<float*>(lse),
+                                  batch, seq, heads, st, sm_scale, window, s);
     case 256:
-      return launch<256, 64>(q, k, v, o, static_cast<float*>(lse), batch,
-                             seq, heads, st, sm_scale, s);
+      return launch_any<256, 64>(q, k, v, o, static_cast<float*>(lse),
+                                 batch, seq, heads, st, sm_scale, window, s);
     default:
       return cudaErrorInvalidValue;
   }

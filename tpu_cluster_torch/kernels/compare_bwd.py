@@ -18,8 +18,10 @@ turns: the other versions, the current source twice, the other versions
 in reverse order. One ``torch.autograd.grad`` of
 ``F.scaled_dot_product_attention`` (dQ, dK and dV in one call) on the same
 tensors is timed beside them as the yardstick. Prints the card's name and
-power limit, each version's ptxas summary and one JSON line of times;
-exits non-zero if a version disagrees with the plain version.
+power limit, each version's ptxas summary, whether each of its kernel
+instances compiles to the current source's machine code
+(``compare_fwd.same_code``) and one JSON line of times; exits non-zero
+if a version disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 from . import _build
 from . import flash_attention as fa
 from .compare_fwd import build_other, cuda_ms, export_sources, power_line, \
-    summary
+    same_code, summary
 
 SHAPE = (1, 16, 8192, 256)  # B, H, S, D: the training shape
 KERNELS = ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")
@@ -57,7 +59,7 @@ def launcher(lib: ctypes.CDLL, name: str):
     n_ptr, n_strided = fa._SIGNATURES[name]
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
                    + [ctypes.c_int64] * (3 * n_strided)
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
 
     def run(q, k, v, do, lse, di, *outs, scale):
@@ -65,7 +67,7 @@ def launcher(lib: ctypes.CDLL, name: str):
         strided = (q, k, v, do, *outs)
         strides = [s for x in strided for s in x.stride()[:3]]
         err = fn(*(x.data_ptr() for x in (q, k, v, do, lse, di, *outs)),
-                 *q.shape, *strides, scale, stream)
+                 *q.shape, *strides, scale, stream, 0)
         if err != 0:
             raise RuntimeError(f"{name} launch failed ({err})")
     return run
@@ -105,11 +107,16 @@ def main(argv) -> int:
     for name in KERNELS:
         summary("current", _build.log_path(name).read_text())
         versions[name]["current"] = launcher(_build.load(name), name)
+    same = {}
     for arg in argv:
         for name in KERNELS:
             if (Path(arg) / f"{name}.cu").exists():
                 versions[name][arg] = launcher(
                     build_other(Path(arg), name), name)
+                same[f"{arg}:{name}"] = same_code(
+                    name, str(Path(arg) / f"lib{name}.so"))
+                print(f"{arg} {name}: same machine code as the current "
+                      f"source: {same[f'{arg}:{name}']}")
 
     b, h, s, d = SHAPE
     scale = d ** -0.5
@@ -147,7 +154,8 @@ def main(argv) -> int:
     sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa, (qt, kt, vt), dot, retain_graph=True))
     product = 2.0 * b * h * d * s * (s + 1) / 2
-    result = {"shape": [b, h, s, d], "sdpa_bwd_ms": sdpa_ms}
+    result = {"shape": [b, h, s, d], "sdpa_bwd_ms": sdpa_ms,
+              "same_code": same}
     for name in KERNELS:
         others = [label for label in versions[name] if label != "current"]
         times = {label: [] for label in versions[name]}

@@ -15,14 +15,18 @@ warm-ups) in turns: the other versions, the current source twice, the
 other versions in reverse order. One call of
 ``F.scaled_dot_product_attention`` on the same tensors is timed beside
 them as the yardstick. Prints the card's name and power limit, each
-version's ptxas summary and one JSON line of times; exits non-zero if a
-version disagrees with the plain version.
+version's ptxas summary, whether each of its kernel instances compiles
+to the same machine code as the current source's instance with the same
+template arguments (:func:`same_code`; a source without the window flag
+against the causal instance), and one JSON line of times; exits non-zero
+if a version disagrees with the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -73,6 +77,45 @@ def export_sources(rev: str, out_dir: Path) -> None:
     print(f"{rev}:{csrc} -> {out_dir}: {' '.join(names)}")
 
 
+def sass(lib: str) -> dict:
+    """Each kernel's instructions in ``lib``, addresses and comments
+    dropped, by mangled name."""
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out: dict = {}
+    kernel = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            out[kernel] = []
+        elif kernel is not None and "*/" in line:
+            ins = line.split("*/", 1)[1].split("/*")[0].strip()
+            if ins:
+                out[kernel].append(ins)
+    return out
+
+
+def _instance(name: str, kernel: str) -> str:
+    """A mangled instance's template arguments, ``...kernelILi256ELi64ELb0E``
+    -> ``256,64,0``; a source without the window flag (``Lb``) reads as
+    its causal instance."""
+    args = kernel.split(f"{name}_kernel", 1)[1]
+    flag = re.findall(r"Lb(\d)E", args) or ["0"]
+    return ",".join(re.findall(r"Li(\d+)E", args) + flag)
+
+
+def same_code(name: str, other: str) -> dict:
+    """Per instance of ``<name>_kernel`` in the library ``other``: whether
+    the current source's instance with the same template arguments has
+    the same instructions."""
+    mine = {_instance(name, k): c
+            for k, c in sass(str(_build.library_path(name))).items()
+            if f"{name}_kernel" in k}
+    return {_instance(name, k): mine.get(_instance(name, k)) == c
+            for k, c in sass(other).items() if f"{name}_kernel" in k}
+
+
 def power_line() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -90,7 +133,8 @@ def summary(label: str, log: str) -> None:
 def launcher(lib: ctypes.CDLL):
     fn = lib.flash_attn_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_int64] * 12 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int64] * 12
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
 
     def run(q, k, v, o, lse, scale):
@@ -98,7 +142,7 @@ def launcher(lib: ctypes.CDLL):
         strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  0 if lse is None else lse.data_ptr(), *q.shape, *strides,
-                 scale, stream)
+                 scale, stream, 0)
         if err != 0:
             raise RuntimeError(f"flash_attn_fwd launch failed ({err})")
     return run
@@ -128,13 +172,17 @@ def main(argv) -> int:
     _build.build(["flash_attn_fwd"])
     summary("current", _build.log_path("flash_attn_fwd").read_text())
     versions = {"current": launcher(_build.load("flash_attn_fwd"))}
+    result = {}
     for arg in argv:
         versions[arg] = launcher(build_other(Path(arg)))
+        same = same_code("flash_attn_fwd",
+                         str(Path(arg) / "libflash_attn_fwd.so"))
+        print(f"{arg}: same machine code as the current source: {same}")
+        result.setdefault("same_code", {})[arg] = same
     others = [name for name in versions if name != "current"]
     turns = others + ["current", "current"] + others[::-1]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {}
     ok = True
     for label, (b, h, s, d, with_lse) in SHAPES.items():
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")

@@ -117,6 +117,16 @@ TRAIN_SPANS: Tuple[str, ...] = (
     "train.sgd_update",
 )
 
+# Span names of a routed expert layer (workloads/sparse.py), in the order
+# its forward opens them inside ``train.loss_and_grads``; its backward
+# opens them again, from autograd's thread, with ``phase="bwd"``.
+MOE_SPANS: Tuple[str, ...] = (
+    "moe.route",     # router product, softmax, top-k and renormalisation
+    "moe.dispatch",  # routed pairs sorted by expert, rows gathered
+    "moe.experts",   # the grouped SwiGLU products over each expert's rows
+    "moe.combine",   # expert outputs weighted and summed back per token
+)
+
 # The Python client/rollout family names (one place so instrumentation
 # sites and assertions cannot drift on spelling).
 REQUESTS_TOTAL = "tpuctl_requests_total"

@@ -14,6 +14,11 @@ configuration for 5 steps on the card and prints ``run``'s JSON.
 :func:`timed_steps` measures training throughput with the shared
 two-point estimator, against the model FLOPs of :func:`flops_per_step`.
 
+The trainer (:func:`train_step`, :func:`loss_and_grads`) also trains the
+sparse model of :mod:`.sparse`: given a ``sparse.SparseConfig``,
+:func:`loss_fn` dispatches to ``sparse.loss_fn``, and the step keeps its
+spans and SGD update.
+
 Sharded training (:func:`make_mesh`, :func:`make_sharded_step`) runs one
 rank a device on a ``("data", "model")`` device mesh: the reference's
 :func:`param_specs` layout, which GSPMD partitions there, written out as
@@ -380,15 +385,27 @@ def _save_dots():
 
 def loss_fn(params: Dict[str, torch.Tensor],
             batch: Tuple[torch.Tensor, torch.Tensor],
-            cfg: BurninConfig, axis: Optional[ModelAxis] = None
-            ) -> torch.Tensor:
+            cfg: BurninConfig, axis: Optional[ModelAxis] = None,
+            telemetry: Optional[_telemetry.Telemetry] = None,
+            counters=None) -> torch.Tensor:
     """Mean cross-entropy of :func:`forward` on ``batch = (tokens,
     targets)``, with the reference's remat policies (``burnin.py:308-318``):
     "dots" saves only the outputs of products without batch dimensions
     (a selective ``torch.utils.checkpoint``), "full" checkpoints the whole
     forward, "attn" checkpoints the "xla" attention block inside
     :func:`forward`, anything else saves everything. With a model
-    ``axis`` the cross-entropy runs over the split vocabulary."""
+    ``axis`` the cross-entropy runs over the split vocabulary. A
+    ``sparse.SparseConfig`` runs ``sparse.loss_fn``, with ``telemetry``
+    for its expert layers' spans and ``counters`` (a
+    ``sparse.RouteCounters``) for their counts; it takes no ``axis``, and
+    the burn-in block takes no ``counters``."""
+    if not isinstance(cfg, BurninConfig):
+        from . import sparse
+        if axis is not None:
+            raise ValueError("the sparse model runs on one device: no axis")
+        return sparse.loss_fn(params, batch, cfg, telemetry, counters)
+    if counters is not None:
+        raise ValueError("the burn-in block counts no routes")
     tokens, targets = batch
     if cfg.remat == "dots":
         logits = checkpoint(forward, params, tokens, cfg, axis,
@@ -405,12 +422,15 @@ def loss_fn(params: Dict[str, torch.Tensor],
 
 def loss_and_grads(params: Dict[str, torch.Tensor],
                    batch: Tuple[torch.Tensor, torch.Tensor],
-                   cfg: BurninConfig, axis: Optional[ModelAxis] = None
+                   cfg: BurninConfig, axis: Optional[ModelAxis] = None,
+                   telemetry: Optional[_telemetry.Telemetry] = None,
+                   counters=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss and its gradient with respect to every parameter (each in
-    its parameter's dtype); ``params`` are not modified."""
+    its parameter's dtype); ``params`` are not modified. ``telemetry``
+    and ``counters`` as :func:`loss_fn`."""
     leaves = {name: p.detach().requires_grad_() for name, p in params.items()}
-    loss = loss_fn(leaves, batch, cfg, axis)
+    loss = loss_fn(leaves, batch, cfg, axis, telemetry, counters)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
@@ -418,7 +438,8 @@ def loss_and_grads(params: Dict[str, torch.Tensor],
 def train_step(params: Dict[str, torch.Tensor],
                batch: Tuple[torch.Tensor, torch.Tensor],
                cfg: BurninConfig,
-               telemetry: Optional[_telemetry.Telemetry] = None
+               telemetry: Optional[_telemetry.Telemetry] = None,
+               counters=None
                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """One plain-SGD step, ``p - lr * g`` for every parameter
     (``burnin.py:321-324``): returns ``(new_params, loss)`` with new
@@ -427,10 +448,12 @@ def train_step(params: Dict[str, torch.Tensor],
     single rounding XLA's fused update gives the reference). With
     ``telemetry``, the step and its two parts are spans
     (``telemetry.TRAIN_SPANS``); they time the host's launches, which run
-    ahead of the device."""
+    ahead of the device. ``counters`` as :func:`loss_fn`."""
     with _telemetry.maybe_span(telemetry, _STEP, "train"):
         with _telemetry.maybe_span(telemetry, _LOSS_AND_GRADS, "train"):
-            loss, grads = loss_and_grads(params, batch, cfg)
+            loss, grads = loss_and_grads(params, batch, cfg,
+                                         telemetry=telemetry,
+                                         counters=counters)
         with _telemetry.maybe_span(telemetry, _SGD_UPDATE, "train"):
             new = sgd_update(params, grads, cfg.lr)
     return new, loss

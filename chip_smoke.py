@@ -23,7 +23,8 @@ Phases, each fatal when it fails:
    process per source, all started together; ptxas's registers and
    spills (none allowed) and each launch's shared memory; the machine
    code of every instance of K1, K2 and K3 must hold wgmma (``HGMMA``)
-   and TMA load (``UTMALDG``) instructions;
+   and TMA load (``UTMALDG``) instructions, that of the decode
+   attention's split pass cp.async (``LDGSTS``);
 3. kernels: K1 (forward) against its plain version at the stated shapes
    and tolerances, and its time at the serving shape of each head width
    (256 and 128) beside its bound, the plain version's time and one
@@ -41,14 +42,19 @@ Phases, each fatal when it fails:
    the sparse model at Mellum2's widths (b1, s8192), whose loss must be
    finite, which must drop no routed pair, and whose K1, K2 and K3 must
    each launch once a layer;
+   The decode attention (``kernels/decode_attention.py``): the kernel
+   against its plain version at both serving cells' caches and lengths
+   (4 slots, H32 D128, seq 8192; 8 slots, H16 D256, seq 2048), and its
+   time there beside its byte bound, the plain version's time and SDPA's;
    The LM head: its tensor-core route (``burnin.lm_head``, a bf16
    cuBLAS product with f32 output, and split-cotangent gradients) against
    the f32 product of the up-cast operands at the training shape, within
    the stated bounds; its kernels by name (a bf16 tensor-core GEMM, no
    f32 GEMM);
 5. serving: ``ServingServer`` answers concurrent ``POST /v1/generate``
-   requests; the kernel launch counts of that run must cover the engine's
-   iterations; the metrics scrape must agree with the engine; one
+   requests; the decode-attention kernel must launch once an engine
+   iteration and K1 never (the decode attends each slot's cached keys);
+   the metrics scrape must agree with the engine; one
    request's logits are recomputed with the plain attention path and
    compared with the kernel path;
    fleet: the fleet controllers on the card's own Node (discovery's
@@ -61,7 +67,8 @@ Phases, each fatal when it fails:
    reservation table seats exactly ``[0]``; four closed-loop clients
    (one a slot) for about 8 s must scale out on duty alone, the new
    gang must queue ("waiting for 1 x 1-card host(s) ...") and no further
-   scale-out may follow, and K1 must launch once an engine iteration;
+   scale-out may follow, and the decode attention must launch once an
+   engine iteration and K1 never;
    idle again, a scale-in must delete ``serving-1`` whole. The scraper
    also reads the controllers' own registry (a second target,
    ``tpuctl``, served by ``MetricsServer``): under load, once a scrape
@@ -137,8 +144,10 @@ Phases, each fatal when it fails:
    ``FLASH_CROSSOVER_SEQ``; beside the grid, the training shape of
    ``shardbench``'s dp and mp arms (s512 b8 at d_head 256). Fails if
    flash loses to ``xla`` by more than the spread at the constant or
-   above, or if a point launched K1, K2 or K3 otherwise than once a
-   flash call;
+   above, or if a point launched K1, K2, K3 or the decode attention
+   otherwise than once a flash call on its path (the serving path's
+   flash is the decode attention over the cache, its ``xla`` the plain
+   version);
 14. host: the machine's cards (the ``/dev/nvidia*`` nodes whose minor
    numbers NVML reports), as many as torch sees, and the node labels of
    the card's host layout; then the GPU stack rendered for that layout
@@ -249,6 +258,17 @@ WINDOW = 1024
 # windowed layers and a full one) at batch 1, seq 8192: K1, K2 and K3
 # launch once a layer.
 SPARSE_BATCH, SPARSE_SEQ = 1, 8192
+# The decode-attention kernel at the serving cells' caches, (slots, seq,
+# H, D), and lengths like theirs: mpt7b8k-serve-offline's articles of
+# ~5,400 tokens cut to 7551 plus abstracts; gptj6b-serve-poisson's code
+# prompts of median 1500 cut to 1791 plus answers.
+DECODE_SHAPES = (((4, 8192, 32, 128), (4200, 5400, 6600, 7800)),
+                 ((8, 2048, 16, 256), (1000, 1200, 1400, 1500, 1500, 1600,
+                                       1800, 2000)))
+# Kernel against its plain version, bf16 outputs: f32 summation order and
+# exp2 against exp may move the one rounding of an output by an ulp, at
+# most 2^-7 of the largest magnitude.
+DECODE_MAX_REL = 2 ** -7
 # The training drive: burnin.standard_config's width at seq 8192, batch 1
 # (the reference's long-context row), a few SGD steps.
 TRAIN_SEQ = 8192
@@ -309,6 +329,29 @@ def cuda_ms(torch, fn, warmup: int, reps: int) -> float:
     return statistics.median(times)
 
 
+def queued_ms(torch, fn, warmup: int, reps: int) -> float:
+    """Median milliseconds of ``fn``'s device work between CUDA events,
+    after warm-up, with the host ahead of the card: each timed call is
+    queued behind a ~5 ms sleep kernel, so the events bracket the
+    launches back to back and not the host's time to launch them (a call
+    whose kernels take less time than their launches would otherwise
+    time its host code)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)  # cycles
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def device_phase(torch):
     """The card's name, and its catalogue entry (data-sheet peaks: dense
     bf16 rate and HBM bandwidth), which every bound below divides by."""
@@ -358,10 +401,11 @@ def sass_counts(lib: str, ops) -> dict:
 
 
 def build_phase() -> None:
-    """Build every kernel; fail on a ptxas spill in any instance, and
-    unless every instance's machine code holds wgmma (``HGMMA``) and TMA
-    loads (``UTMALDG``). Prints each instance's registers and the dynamic
-    shared memory its launch asks for."""
+    """Build every kernel; fail on a ptxas spill in any instance, unless
+    every flash instance's machine code holds wgmma (``HGMMA``) and TMA
+    loads (``UTMALDG``), and unless every decode-attention split-pass
+    instance's holds cp.async (``LDGSTS``). Prints each instance's
+    registers and the dynamic shared memory its launch asks for."""
     import ctypes
 
     from tpu_cluster_torch.kernels import _build
@@ -370,7 +414,6 @@ def build_phase() -> None:
     _build.build()
     print(f"build: {len(_build.SOURCES)} kernel source(s) ready in "
           f"{time.perf_counter() - t0:.1f} s")
-    ops = ("HGMMA", "UTMALDG")
     for name in _build.SOURCES:
         for line in _build.log_path(name).read_text().splitlines():
             # the entry line names the instance (template arguments)
@@ -381,21 +424,27 @@ def build_phase() -> None:
                 check(" 0 bytes spill stores, 0 bytes spill loads" in line,
                       f"{name} spills registers: {line.strip()}")
         lib = ctypes.CDLL(str(_build.library_path(name)))
-        smem = {d: lib.flash_attn_smem_bytes(d) for d in (128, 256)}
+        flash = name in _build.FLASH_SOURCES
+        smem_fn = lib.flash_attn_smem_bytes if flash \
+            else lib.decode_attn_smem_bytes
+        smem = {d: smem_fn(d) for d in (128, 256)}
         print(f"  {name}: dynamic shared memory a launch asks for: "
               + ", ".join(f"D={d} {n} bytes" for d, n in smem.items()))
+        ops = ("HGMMA", "UTMALDG") if flash else ("LDGSTS",)
+        stem = f"{name}_kernel" if flash else "decode_attn_split_kernel"
         counts = sass_counts(str(_build.library_path(name)), ops)
-        kernels = {k: v for k, v in counts.items() if f"{name}_kernel" in k}
+        kernels = {k: v for k, v in counts.items() if stem in k}
         for kernel, n in kernels.items():
             # the mangled name holds the instance:
             # ...kernelILi256ELi64ELb0E... (Lb: the window flag)
             args = re.findall(r"L[ib](\d+)E",
                               kernel.split("_kernel", 1)[1])
-            print(f"  {name}_kernel<{', '.join(args)}> SASS: "
+            print(f"  {stem}<{', '.join(args)}> SASS: "
                   + ", ".join(f"{op} x{n[op]}" for op in ops))
-        check(len(kernels) == 4  # D = 128 and 256, causal and windowed
+        # flash: D = 128 and 256, causal and windowed; decode: D = 128, 256
+        check(len(kernels) == (4 if flash else 2)
               and all(n[op] > 0 for n in kernels.values() for op in ops),
-              f"{name} instances without wgmma or TMA loads: {kernels}")
+              f"{name} instances without {'/'.join(ops)}: {kernels}")
 
 
 def flash_phase(torch, acc) -> dict:
@@ -770,6 +819,69 @@ def window_phase(torch, acc) -> dict:
     return {"records": records, "launches": launches}
 
 
+def decode_phase(torch, acc) -> dict:
+    """The decode-attention kernel at the serving cells' caches and
+    lengths: against its plain version, then its time (CUDA events,
+    median of 20, the host ahead: :func:`queued_ms`) beside its byte
+    bound, the plain version's time and SDPA's over the same cache
+    (``library_ms``, a yardstick the port never calls). Returns the
+    record of each, by head width."""
+    import torch.nn.functional as F
+
+    from tpu_cluster_torch.kernels import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = {}
+    for (slots, seq, heads, d), lens in DECODE_SHAPES:
+        q = torch.randn((slots, heads, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((slots, seq, heads, d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        longest, scale = max(lens), d ** -0.5
+        kc, vc = k[:, :longest], v[:, :longest]
+        out = da.decode_attention(q, k, v, lengths, scale, lens)
+        ref = da.decode_attention_reference(q, kc, vc, lengths, scale)
+        err = (out.float() - ref.float()).abs()
+        max_rel = err.max().item() / ref.float().abs().max().item()
+        shape = f"slots {slots} H{heads} D{d} seq {seq}, lengths {list(lens)}"
+        print(f"decode_attn {shape}: max_abs_err / max|plain| {max_rel:.3e} "
+              f"(tol {DECODE_MAX_REL})")
+        check(max_rel <= DECODE_MAX_REL,
+              f"decode kernel disagrees with its plain version at {shape}")
+        ms = queued_ms(torch, lambda: da.decode_attention(
+            q, k, v, lengths, scale, lens), warmup=3, reps=20)
+        plain_ms = queued_ms(torch, lambda: da.decode_attention_reference(
+            q, kc, vc, lengths, scale), warmup=1, reps=5)
+        attend = (torch.arange(longest, device="cuda")[None, :]
+                  < lengths[:, None].long())[:, None, None, :]
+        qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        library_ms = queued_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attend, scale=scale), warmup=3, reps=20)
+        # K and V of the attended rows read once, q read and o written
+        nbytes = 2.0 * sum(lens) * heads * d * 2 + 2.0 * slots * heads * d * 2
+        flops = 4.0 * sum(lens) * heads * d
+        byte_ms = nbytes / acc.hbm_bytes_per_s * 1e3
+        records[d] = record = {
+            "name": "decode_attn", "route": "cuda",
+            "source": "tpu_cluster_torch/csrc/decode_attn.cu",
+            "replaces": "no TPU kernel (K1's place on the decode path)",
+            "shape": [slots, seq, heads, d], "lengths": list(lens),
+            "max_rel_err": max_rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": byte_ms, "bound_by": "bytes",
+            "library_ms": library_ms, "gbps": nbytes / ms / 1e6,
+            "flops": flops,
+        }
+        print(f"decode_attn {shape}: kernel {ms:.4f} ms "
+              f"({record['gbps']:.0f} GB/s), bound {byte_ms:.4f} ms (bytes, "
+              f"{nbytes / 1e6:.1f} MB; {flops / 1e6:.0f} MFLOP), plain "
+              f"{plain_ms:.3f} ms, SDPA {library_ms:.4f} ms")
+        del q, k, v, kc, vc, qt, kt, vt, out, ref, err
+    torch.cuda.empty_cache()
+    return records
+
+
 def bf16_ulp(x: float) -> float:
     """The spacing of bf16 numbers (8 significant bits) at |x| > 0."""
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
@@ -887,6 +999,7 @@ def serving_phase(torch) -> dict:
     from dataclasses import replace
 
     from tpu_cluster_torch import telemetry
+    from tpu_cluster_torch.kernels import decode_attention as da
     from tpu_cluster_torch.kernels import flash_attention as fa
     from tpu_cluster_torch.workloads import burnin, serving
 
@@ -909,7 +1022,8 @@ def serving_phase(torch) -> dict:
     server = serving.ServingServer(engine)
 
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0  # count the main path's run only
+    # count the main path's run only
+    da.decode_attention.launches = fa.flash_attention.launches = 0
     server.start()
     try:
         t0 = time.perf_counter()
@@ -921,7 +1035,8 @@ def serving_phase(torch) -> dict:
         for th in posts:
             th.join(timeout=900)
         wall = time.perf_counter() - t0
-        launches = fa.flash_attention.launches
+        launches = da.decode_attention.launches
+        k1 = fa.flash_attention.launches
         iterations, decoded = engine.iterations, engine.decoded_tokens
         with urllib.request.urlopen(server.metrics_url, timeout=60) as resp:
             metrics_text = resp.read().decode()
@@ -938,14 +1053,16 @@ def serving_phase(torch) -> dict:
                if line.startswith("tpu_serving_tokens_total ")]
     check(len(scraped) == 1 and float(scraped[0].split()[1]) == decoded,
           f"metrics {scraped} vs decoded_tokens {decoded}")
-    check(iterations > 0 and launches == iterations,
-          f"flash launches {launches} vs engine iterations {iterations} "
-          f"(one attention layer per forward)")
+    check(iterations > 0 and launches == iterations and k1 == 0,
+          f"decode-attention launches {launches}, K1 {k1} vs engine "
+          f"iterations {iterations} (one attention layer per decode, over "
+          f"the cache)")
     print(f"serving: {len(prompts)} requests (prompts {list(PROMPT_LENS)} "
           f"tokens) all 200, {decoded} tokens in {iterations} iterations, "
           f"{wall:.3f} s wall: {wall / iterations * 1e3:.1f} ms/iteration, "
-          f"{decoded / wall:.2f} decoded tokens/s; flash launches "
-          f"{launches}; peak device memory {peak_gib:.1f} GiB")
+          f"{decoded / wall:.2f} decoded tokens/s; decode-attention "
+          f"launches {launches}, K1 {k1}; peak device memory "
+          f"{peak_gib:.1f} GiB")
 
     # teacher forcing on the longest request: its history in a zero-padded
     # row, logits at each iteration's position, kernel path vs plain path
@@ -1058,6 +1175,7 @@ def fleet_phase(torch, trace_dir=None) -> dict:
     from tpu_cluster_torch import (admission, autoscale, events, kubeapply,
                                    maintenance, metricsdb, telemetry)
     from tpu_cluster_torch.discovery import labeler, labels
+    from tpu_cluster_torch.kernels import decode_attention as da
     from tpu_cluster_torch.kernels import flash_attention as fa
     from tpu_cluster_torch.slo import format_report as slo_format
     from tpu_cluster_torch.spec import default_spec
@@ -1113,7 +1231,7 @@ def fleet_phase(torch, trace_dir=None) -> dict:
         try:
             # count this phase's run only
             for fn in (fa.flash_attention, fa.flash_attention_bwd_dkv,
-                       fa.flash_attention_bwd_dq):
+                       fa.flash_attention_bwd_dq, da.decode_attention):
                 fn.launches = 0
             server.start()
             # the controllers' own registry (the client's request
@@ -1215,7 +1333,8 @@ def fleet_phase(torch, trace_dir=None) -> dict:
             for th in clients:
                 th.join(timeout=120)
             load_s = time.monotonic() - t_load
-            launches_load = fa.flash_attention.launches
+            launches_load = da.decode_attention.launches
+            k1_load = fa.flash_attention.launches
             iterations_load = engine.iterations - it0
             duty = up.view.duty_percent
             print(f"fleet: load: {up.line()}; duty read at the decision "
@@ -1241,12 +1360,13 @@ def fleet_phase(torch, trace_dir=None) -> dict:
             codes = sorted(set(done))
             print(f"fleet: {len(done)} request(s) in {load_s:.1f} s by "
                   f"{len(clients)} closed-loop client(s), HTTP {codes}; "
-                  f"K1 launches {launches_load}, engine iterations "
-                  f"{iterations_load}")
+                  f"decode-attention launches {launches_load}, K1 "
+                  f"{k1_load}, engine iterations {iterations_load}")
             check(codes == [200], f"HTTP codes {codes}")
-            check(iterations_load > 0 and launches_load == iterations_load,
-                  f"K1 launches {launches_load} vs iterations "
-                  f"{iterations_load} under load")
+            check(iterations_load > 0 and launches_load == iterations_load
+                  and k1_load == 0,
+                  f"decode-attention launches {launches_load}, K1 "
+                  f"{k1_load} vs iterations {iterations_load} under load")
 
             # 3. idle again: the window drains, serving-1 goes whole
             down = _until(
@@ -1303,15 +1423,17 @@ def fleet_phase(torch, trace_dir=None) -> dict:
         check(live.ok and avail.total_samples > 0,
               "the live SLO over the fleet's TSDB:\n"
               + slo_format(live))
-        launches = fa.flash_attention.launches
-        backward = (fa.flash_attention_bwd_dkv.launches,
-                    fa.flash_attention_bwd_dq.launches)
-        print(f"fleet: K1 launches {launches} over the engine's "
-              f"{engine.iterations} iterations; K2, K3 {backward}")
+        launches = da.decode_attention.launches
+        flash = (fa.flash_attention.launches,
+                 fa.flash_attention_bwd_dkv.launches,
+                 fa.flash_attention_bwd_dq.launches)
+        print(f"fleet: decode-attention launches {launches} over the "
+              f"engine's {engine.iterations} iterations; K1, K2, K3 "
+              f"{flash}")
         check(launches == engine.iterations,
-              f"K1 launches {launches} vs engine iterations "
+              f"decode-attention launches {launches} vs engine iterations "
               f"{engine.iterations} in the phase")
-        check(backward == (0, 0), f"K2, K3 launched {backward} serving")
+        check(flash == (0, 0, 0), f"K1, K2, K3 launched {flash} serving")
 
         # 4. a maintenance wave over the card's Node
         plan = maintenance.plan_from_cluster(client, FLEET_TARGET_VERSION)
@@ -1863,9 +1985,9 @@ def crossover_phase(torch, smi_line: str) -> dict:
     widths; then the sweep, one row a point beside the card's name and
     power limit; the seq the rule picks on this run beside the constant
     in the code. Fails if flash loses to ``xla`` by more than the spread
-    at the constant or above, or if a point launched K1, K2 or K3
-    otherwise than once a flash call. Returns the launch counts by
-    d_head."""
+    at the constant or above, or if a point launched K1, K2, K3 or the
+    decode attention otherwise than once a flash call on its path.
+    Returns the launch counts by d_head (K1, K2, K3, decode)."""
     from tpu_cluster_torch.kernels import crossover
 
     for fn in crossover.KERNELS:  # count the main path's run only
@@ -1877,7 +1999,7 @@ def crossover_phase(torch, smi_line: str) -> dict:
     total = [fn.launches for fn in crossover.KERNELS]
     by_head = result["launches"]
     print(f"crossover: {len(result['rows']) + len(result['arms'])} points "
-          f"in {wall:.1f} s; launches K1/K2/K3 {total}, by d_head "
+          f"in {wall:.1f} s; launches K1/K2/K3/decode {total}, by d_head "
           f"{by_head}")
     for c in result["checks"]:
         check(c["ok"], f"crossover check at {c['width']} width failed: {c}")
@@ -1885,11 +2007,11 @@ def crossover_phase(torch, smi_line: str) -> dict:
           "flash loses to xla by more than the spread at or above "
           "FLASH_CROSSOVER_SEQ: " + "; ".join(
               crossover.format_row(r) for r in result["against"]))
-    check(result["launches_ok"], "a crossover point launched K1/K2/K3 "
+    check(result["launches_ok"], "a crossover point launched K1/K2/K3/decode "
                                  "otherwise than once a flash call")
     check(total == [sum(n) for n in zip(*by_head.values())]
           and sorted(by_head) == [128, 256],
-          f"crossover launches K1/K2/K3 {total} outside its points "
+          f"crossover launches K1/K2/K3/decode {total} outside its points "
           f"{by_head}")
     return by_head
 
@@ -2415,6 +2537,7 @@ def run_phases(torch, traces: str) -> int:
     forward = flash_phase(torch, acc)
     backward = backward_phase(torch, acc)
     windowed = window_phase(torch, acc)
+    decoding = decode_phase(torch, acc)
     head_phase(torch)
     served = serving_phase(torch)
     fleet = fleet_phase(torch, traces)
@@ -2441,8 +2564,6 @@ def run_phases(torch, traces: str) -> int:
                           "training_shape": backward[128]["k1_training"]}
     k2, k3 = (dict(backward[256][n], head_dim_128=backward[128][n])
               for n in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"))
-    k1["launches_by_path"] = {"serving": serving_launches,
-                              "autoscale": fleet["launches"]}
     for i, record in enumerate((k1, k2, k3)):
         by_path = record.setdefault("launches_by_path", {})
         by_path["training"] = training_launches[i]
@@ -2459,7 +2580,15 @@ def run_phases(torch, traces: str) -> int:
             "sparse_training": windowed["launches"][i]}
         narrow["launches"] = sum(narrow["launches_by_path"].values())
         narrow["window"] = windowed["records"][record["name"]]
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    # the decode attention runs on the serving paths and the crossover's
+    decode = dict(decoding[256], head_dim_128=decoding[128])
+    decode["launches_by_path"] = {"serving": serving_launches,
+                                  "autoscale": fleet["launches"],
+                                  "crossover": cross[256][3]}
+    decode["head_dim_128"]["launches_by_path"] = {"crossover": cross[128][3]}
+    for record in (decode, decode["head_dim_128"]):
+        record["launches"] = sum(record["launches_by_path"].values())
+    print(json.dumps({"kernels": [k1, k2, k3, decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

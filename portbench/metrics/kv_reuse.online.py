@@ -1,0 +1,8 @@
+"""Decode step's K/V cache reuse under open-loop traffic (see
+``_kv_reuse``)."""
+
+from portbench.metrics._kv_reuse import read_mode
+
+
+def read(rec):
+    return read_mode(rec, "open")

@@ -94,8 +94,8 @@ def test_sweep_configurations(path):
 
 def test_sweep_launch_count_and_spread():
     calls = crossover.WARMUP + crossover.REPS
-    assert crossover.point_launches("serving") == [calls, 0, 0]
-    assert crossover.point_launches("training") == [calls, calls, calls]
+    assert crossover.point_launches("serving") == [0, 0, 0, calls]
+    assert crossover.point_launches("training") == [calls, calls, calls, 0]
     assert crossover.spread([1.0, 2.0, 3.0, 4.0, 5.0]) == 2.0
 
 

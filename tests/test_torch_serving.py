@@ -19,6 +19,7 @@ import urllib.request
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tpu_cluster.workloads import burnin as ref_burnin
@@ -158,6 +159,184 @@ def test_decode_runs_the_tail_and_head_on_one_row_a_slot(monkeypatch):
     last = [len(p) - 1 for p in prompts]
     picks = full[torch.arange(3), torch.tensor(last)].argmax(-1)
     assert [r.tokens for r in reqs] == [[int(t)] for t in picks]
+
+
+# ------------------------------------------------------ the K/V cache
+
+
+def _record_decode(monkeypatch):
+    """Every decode call's buffer, positions, ids and logits: the engine's
+    decode wrapped, the logits taken from ``burnin.block_tail``."""
+    calls, tails = [], []
+    make, tail = serving.make_decode, burnin.block_tail
+
+    def block_tail(*args, **kw):
+        tails.append(tail(*args, **kw))
+        return tails[-1]
+
+    def wrapped(mcfg, device, **kw):
+        decode = make(mcfg, device, **kw)
+
+        def run(params, tokens, pos):
+            ids = decode(params, tokens, pos)
+            calls.append((params, tokens.copy(), np.array(pos), ids,
+                          tails[-1]))
+            return ids
+        return run
+
+    monkeypatch.setattr(burnin, "block_tail", block_tail)
+    monkeypatch.setattr(serving, "make_decode", wrapped)
+    return calls
+
+
+def _uncached(params, mcfg, tokens, pos):
+    with torch.inference_mode():
+        return burnin.forward(params, torch.from_numpy(tokens), mcfg,
+                              at=torch.from_numpy(np.asarray(pos)).long())
+
+
+def test_cached_decode_matches_the_uncached_forward(monkeypatch):
+    """Through mid-batch admission and eviction, every iteration's tokens
+    are the greedy picks of the whole-buffer forward at each slot's
+    position, and its logits agree with that forward's."""
+    calls = _record_decode(monkeypatch)
+    eng = tiny_engine(slots=2)
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in
+            [((1, 2, 3), 5), ((5, 9, 11, 2, 7), 2), ((4,), 6),
+             ((3, 1, 2, 8, 8, 8), 3), ((1, 2, 3, 4), 4)]]
+    eng.drain()
+    assert all(r.status == serving.STATUS_OK for r in reqs)
+    mcfg = eng.model_config()
+    assert len(calls) == eng.iterations > len(reqs)
+    for params, tokens, pos, ids, logits in calls:
+        want = _uncached(params, mcfg, tokens, pos)
+        assert (logits - want).abs().max().item() < LOGIT_ATOL
+        assert ids.tolist() == want.argmax(-1).tolist()
+
+
+def _dispatch_rows(tel):
+    """(projected_rows, cached_rows) of each dispatch span that carries
+    them (a call that raised does not), in order."""
+    spans = sorted((s for s in tel.tracer.walk()
+                    if s.name == serving._DISPATCH
+                    and "projected_rows" in s.args), key=lambda s: s.start_s)
+    return [(s.args["projected_rows"], s.args["cached_rows"]) for s in spans]
+
+
+def test_projected_rows_count_what_the_cache_misses():
+    """A first call projects every prompt row; a continuing slot adds one
+    row; a slot reseated with a prompt that shares k tokens with the last
+    one adds its length less k; the rest is attended from the cache."""
+    tel = telemetry.Telemetry()
+    eng = tiny_engine(slots=2)
+    params, _, _ = eng._ensure_model()
+    decode = serving.make_decode(eng.model_config(), eng.device,
+                                 telemetry=tel)
+    tokens = np.zeros((2, TINY["seq"]), np.int32)
+    a, b = [3, 1, 4, 1, 5, 9], [2, 7, 1, 8]
+    tokens[0, :6], tokens[1, :4] = a, b
+    pos = np.array([5, 3], np.int32)
+    ids = decode(params, tokens, pos)
+    tokens[[0, 1], pos + 1] = ids
+    pos += 1
+    decode(params, tokens, pos)
+    c = [3, 1, 4, 2, 2, 2, 2, 2]             # shares 3 tokens with a
+    tokens[0, :] = 0
+    tokens[0, :8] = c
+    pos = np.array([7, pos[1] + 1], np.int32)
+    decode(params, tokens, pos)
+    assert _dispatch_rows(tel) == [(6 + 4, 0), (1 + 1, 6 + 4),
+                                   ((8 - 3) + 1, 3 + 5)]
+
+
+def test_a_token_changed_behind_pos_is_projected_again(monkeypatch):
+    """A token altered behind a slot's position is projected again from
+    its position on, and the logits are the uncached forward's; with the
+    stale rows kept they would not be."""
+    tel = telemetry.Telemetry()
+    eng = tiny_engine(slots=2)
+    mcfg = eng.model_config()
+    params, _, _ = eng._ensure_model()
+    decode = serving.make_decode(mcfg, eng.device, telemetry=tel)
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, TINY["vocab"], (2, TINY["seq"])).astype(np.int32)
+    pos = np.array([10, 12], np.int32)
+    decode(params, tokens, pos)
+    before = _uncached(params, mcfg, tokens, pos)
+    tokens[0, 4] = (tokens[0, 4] + 5) % TINY["vocab"]
+    tails = []
+    tail = burnin.block_tail
+    monkeypatch.setattr(burnin, "block_tail",
+                        lambda *a: tails.append(tail(*a)) or tails[-1])
+    ids = decode(params, tokens, pos)
+    want = _uncached(params, mcfg, tokens, pos)
+    assert _dispatch_rows(tel)[-1] == ((10 - 4 + 1) + 1, 4 + 12)
+    assert (tails[0] - want).abs().max().item() < LOGIT_ATOL
+    assert ids.tolist() == want.argmax(-1).tolist()
+    # the altered token moved slot 0's logits, not slot 1's
+    assert (want[0] - before[0]).abs().max().item() > 4 * LOGIT_ATOL
+    assert torch.equal(want[1], before[1])
+
+
+def test_a_call_that_raises_leaves_its_rows_to_project(monkeypatch):
+    """A call whose dispatch raises after the cache writes commits none of
+    its rows to the mirror: the next call projects them again and gives
+    the uncached forward's logits."""
+    tel = telemetry.Telemetry()
+    eng = tiny_engine(slots=2)
+    mcfg = eng.model_config()
+    params, _, _ = eng._ensure_model()
+    decode = serving.make_decode(mcfg, eng.device, telemetry=tel)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, TINY["vocab"], (2, TINY["seq"])).astype(np.int32)
+    pos = np.array([6, 9], np.int32)
+    tail = burnin.block_tail
+
+    def fail(*a):
+        raise RuntimeError("planted")
+    monkeypatch.setattr(burnin, "block_tail", fail)
+    with pytest.raises(RuntimeError, match="planted"):
+        decode(params, tokens, pos)
+    tails = []
+    monkeypatch.setattr(burnin, "block_tail",
+                        lambda *a: tails.append(tail(*a)) or tails[-1])
+    ids = decode(params, tokens, pos)
+    want = _uncached(params, mcfg, tokens, pos)
+    assert _dispatch_rows(tel) == [(7 + 10, 0)]
+    assert (tails[0] - want).abs().max().item() < LOGIT_ATOL
+    assert ids.tolist() == want.argmax(-1).tolist()
+
+
+@pytest.mark.parametrize("device,d_model,n_heads,seq,want", [
+    ("cuda", 1024, 8, 1000, "flash"),    # d_head 128, seq under K1's rule
+    ("cuda", 4096, 16, 2048, "flash"),   # d_head 256
+    ("cuda", 16, 2, 16, "xla"),          # d_head 8: not built for it
+    ("cpu", 1024, 8, 2048, "xla"),       # the CPU: the plain version
+])
+def test_engine_picks_the_decode_kernel_by_device_and_width(
+        device, d_model, n_heads, seq, want):
+    """The engine's decode attention follows the decode kernel's own
+    reach, the card and a head width it is built for, at any seq: not
+    K1's crossover or tile rule. Nothing touches the card here."""
+    cfg = serving.ServingConfig(vocab=64, d_model=d_model, d_ff=2 * d_model,
+                                n_heads=n_heads, seq=seq, slots=2)
+    eng = serving.InferenceEngine(cfg, device=device)
+    assert eng.model_config().attention == want
+
+
+def test_decode_refuses_weights_other_than_its_first():
+    """The cache holds keys and values of the first call's parameters: a
+    call with another parameters object raises; the same one runs on."""
+    eng = tiny_engine(slots=2)
+    mcfg = eng.model_config()
+    params, _, _ = eng._ensure_model()
+    decode = serving.make_decode(mcfg, eng.device)
+    tokens = np.ones((2, TINY["seq"]), np.int32)
+    pos = np.array([2, 3], np.int32)
+    decode(params, tokens, pos)
+    with pytest.raises(ValueError, match="first call's params"):
+        decode(dict(params), tokens, pos)
+    assert decode(params, tokens, pos).shape == (2,)
 
 
 # ----------------------------------------------------------- admission

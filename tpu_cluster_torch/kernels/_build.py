@@ -27,10 +27,13 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# Every kernel source of the port, by stem under csrc/ (each includes
-# csrc/hopper_common.cuh).
-SOURCES: Sequence[str] = ("flash_attn_fwd", "flash_attn_bwd_dkv",
-                          "flash_attn_bwd_dq")
+# The flash-attention sources (K1, K2, K3), each built on
+# csrc/hopper_common.cuh's TMA and wgmma primitives.
+FLASH_SOURCES: Sequence[str] = ("flash_attn_fwd", "flash_attn_bwd_dkv",
+                                "flash_attn_bwd_dq")
+# Every kernel source of the port, by stem under csrc/: the flash kernels
+# and the decode attention (cp.async and the CUDA cores).
+SOURCES: Sequence[str] = (*FLASH_SOURCES, "decode_attn")
 
 NVCC_FLAGS: Sequence[str] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

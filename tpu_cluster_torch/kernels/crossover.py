@@ -11,7 +11,9 @@ weights from seed 0. Paths:
 
 - serving: one decode iteration as ``serving.make_decode`` runs it (host
   tokens in, next ids out), bf16 parameters, the engine's 4 slots, each
-  at its last position;
+  at its last position, its keys and values cached by the warm-up calls:
+  "flash" is the decode-attention kernel over the cache, ``xla`` its
+  plain version (K1 no longer runs on the decode path);
 - training: one ``burnin.loss_and_grads``, f32 masters, batch 1, remat
   "none".
 
@@ -52,6 +54,7 @@ import numpy as np
 import torch
 
 from ..workloads import burnin, serving, shardbench
+from . import decode_attention as da
 from . import flash_attention as fa
 from .compare_fwd import power_line
 
@@ -73,9 +76,11 @@ LOGIT_ATOL = 5e-2
 LOSS_ATOL = 2e-3
 GRAD_MAX_REL = 5e-2
 GRAD_MEAN_REL = 2e-2
-# K1, K2, K3: every flash call on the paths launches them once a layer
+# K1, K2, K3 and the decode attention: every flash call on the training
+# path launches the first three once a layer, every flash call on the
+# serving path the last once
 KERNELS = (fa.flash_attention, fa.flash_attention_bwd_dkv,
-           fa.flash_attention_bwd_dq)
+           fa.flash_attention_bwd_dq, da.decode_attention)
 
 Row = Dict[str, Any]
 
@@ -227,16 +232,18 @@ def contradictions(rows: Sequence[Row], constant: int) -> List[Row]:
 
 
 def launch_counts() -> List[int]:
-    """K1's, K2's and K3's launch counts so far."""
+    """K1's, K2's, K3's and the decode attention's launch counts so
+    far."""
     return [fn.launches for fn in KERNELS]
 
 
 def point_launches(path: str) -> List[int]:
-    """K1, K2 and K3 launches of one point on ``path``: one attention
-    layer a flash call, K1 on both paths, K2 and K3 on the training
-    path."""
+    """K1, K2, K3 and decode-attention launches of one point on ``path``:
+    one attention layer a flash call, K1, K2 and K3 on the training path,
+    the decode attention on the serving path."""
     calls = WARMUP + REPS
-    return [calls] + [calls if path == "training" else 0] * 2
+    training = path == "training"
+    return [calls if training else 0] * 3 + [0 if training else calls]
 
 
 def time_point(name: str, path: str, seq: int, batch: Optional[int],
@@ -308,7 +315,8 @@ def check_point(name: str, dev: torch.device) -> Dict[str, Any]:
     """At ``CHECK_SEQ`` and the width ``name``: the serving path's logits
     of both attention modes, and the training path's loss and
     per-parameter gradients, flash against ``xla``. Returns the errors,
-    the kernels' launches (K1 twice, K2 and K3 once) and ``ok``."""
+    the kernels' launches (K1 twice, K2 and K3 once, the decode attention
+    never) and ``ok``."""
     width = widths()[name]
     seq = CHECK_SEQ
     out: Dict[str, Any] = {"width": name,
@@ -370,9 +378,9 @@ def run(dev: torch.device, smi: str,
     :func:`sweep`, the rule's pick and the points at or above
     ``FLASH_CROSSOVER_SEQ`` where flash loses (``against``), each line
     ``say``-ed as it lands, the rows beside ``smi`` (the card's name and
-    power limit). ``launches`` sums K1's, K2's and K3's launches by
-    d_head; ``launches_ok`` is whether every point launched them as
-    :func:`point_launches` says."""
+    power limit). ``launches`` sums K1's, K2's, K3's and the decode
+    attention's launches by d_head; ``launches_ok`` is whether every
+    point launched them as :func:`point_launches` says."""
     checks = [check_point(name, dev) for name in widths()]
     for c in checks:
         say(format_check(c))
@@ -386,12 +394,12 @@ def run(dev: torch.device, smi: str,
         f"{len(against)} ({smi})")
     launches: Dict[int, List[int]] = {}
     for point in checks + rows + arms:
-        total = launches.setdefault(point["d_head"], [0, 0, 0])
+        total = launches.setdefault(point["d_head"], [0] * len(KERNELS))
         for i, n in enumerate(point["launches"]):
             total[i] += n
     launches_ok = (all(r["launches"] == point_launches(r["path"])
                        for r in rows + arms)
-                   and all(c["launches"] == [2, 1, 1] for c in checks))
+                   and all(c["launches"] == [2, 1, 1, 0] for c in checks))
     return {"device": smi, "checks": checks, "rows": rows, "arms": arms,
             "pick": pick, "set_by": by, "constant": constant,
             "against": against, "launches": launches,

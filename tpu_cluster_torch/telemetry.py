@@ -101,9 +101,12 @@ SERVING_SPANS: Tuple[str, ...] = (
                           # admitted, evicted
     "serving.admit",      # deadline drops and prompt writes
     "serving.gauges",     # the engine's gauges
-    "serving.upload",     # host->device copy of the tokens and positions
-    "serving.dispatch",   # inference mode, forward, row gather, argmax:
-                          # launched, not run
+    "serving.upload",     # the rows to project (the K/V cache's host
+                          # mirror), host->device copy of their tokens
+                          # and positions
+    "serving.dispatch",   # inference mode, projections, cache writes,
+                          # attention, tail, argmax: launched, not run;
+                          # args tail_rows, projected_rows, cached_rows
     "serving.sync",       # the copy back, which waits for the device
     "serving.emit",       # duty samples, token append, evictions, counters
     "serving.park",       # root: the wait for work with no slot seated

@@ -306,12 +306,11 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     / tp]`` with ``at``, which indexes this rank's rows)."""
     _check_knobs(cfg)
     bf16 = torch.bfloat16
-    x = embed_lookup(params["embed"], tokens, axis).to(bf16)   # [B, S, D]
+    x, y = block_input(params, tokens, axis)                  # [B, S, D]
     h = cfg.n_heads // (1 if axis is None else axis.size)
     d_head = cfg.d_model // cfg.n_heads
     shape = (*x.shape[:2], h, d_head)
 
-    y = copy_to_model(_rms(x), axis)
     q = (y @ params["wq"].to(bf16)).reshape(shape)
     k = (y @ params["wk"].to(bf16)).reshape(shape)
     v = (y @ params["wv"].to(bf16)).reshape(shape)
@@ -330,6 +329,30 @@ def forward(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     if at is not None:
         rows = torch.arange(x.shape[0], device=x.device)
         x, o = x[rows, at], o[rows, at]      # each row's [D] and [h * d_head]
+    return block_tail(params, x, o, axis)
+
+
+def block_input(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                axis: Optional[ModelAxis] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block before attention, token by token: ``(x, y)``, the bf16
+    embedding rows of ``tokens`` and their RMS norm, the input of the
+    Q, K and V projections. The start of :func:`forward`, and of the
+    serving engine's cached decode."""
+    x = embed_lookup(params["embed"], tokens, axis).to(torch.bfloat16)
+    return x, copy_to_model(_rms(x), axis)
+
+
+def block_tail(params: Dict[str, torch.Tensor], x: torch.Tensor,
+               o: torch.Tensor, axis: Optional[ModelAxis] = None
+               ) -> torch.Tensor:
+    """The block after attention, row by row: the output projection and
+    residual, the MLP and its residual, the final norm and the LM head,
+    from the bf16 block input ``x [..., D]`` and attention output ``o
+    [..., h * d_head]`` of the same rows; f32 ``[..., vocab]`` logits
+    (with a model ``axis``, this rank's slice, as :func:`forward`). The
+    tail of :func:`forward`, and of the serving engine's cached decode."""
+    bf16 = torch.bfloat16
     x = x + reduce_from_model(o @ params["wo"].to(bf16), axis)
     y = copy_to_model(_rms(x), axis)
     ff = F.gelu(y @ params["w1"].to(bf16), approximate="tanh")

@@ -7,18 +7,19 @@ slot-based continuous-batching decode loop (the Orca scheduling shape):
 
 - **Slot-based decode batching.** The decode batch is ``slots`` fixed
   positions over one static ``[slots, seq]`` token buffer; each
-  iteration runs ONE full-sequence forward over it (attention over every
-  position, the block's tail and the LM head on each slot's read row
-  alone) and advances every seated sequence by one token.
+  iteration runs ONE decode step over it (:func:`make_decode`: keys and
+  values cached on the card per slot, one new row a slot projected and
+  attended, the block's tail and the LM head on each slot's read row)
+  and advances every seated sequence by one token.
 - **Iteration-level admission.** Between iterations finished sequences
   are evicted and queued requests are prefilled into the freed slots;
   ``static_batching=True`` is the control arm behind a batch-boundary
   barrier.
-- **Attention selection.** The model config routes through
-  ``burnin.select_attention`` with the engine's device type, so a
-  long-context shape on CUDA runs the hand-written flash-attention
-  kernel (one launch per decode iteration) and the CPU always gets the
-  plain path.
+- **Attention selection.** The model config picks the decode step's
+  attention from the engine's device and the head width alone: on CUDA,
+  at a width the hand-written decode-attention kernel is built for, that
+  kernel (one launch per decode iteration, at any seq); on the CPU and
+  at other widths, its plain version.
 - **Per-request deadlines**, enforced at queue admission, in the queue
   and mid-batch.
 - **Observable.** ``tpu_serving_*`` families on the engine's registry
@@ -53,9 +54,10 @@ the lock.
 
 from __future__ import annotations
 
+import math
 import threading
 import time
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from collections import deque
@@ -64,6 +66,9 @@ import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from ..kernels.decode_attention import (SUPPORTED_HEAD_DIMS,
+                                        decode_attention,
+                                        decode_attention_reference)
 from . import burnin, runtime_metrics
 
 # Request terminal statuses (engine-internal vocabulary; the HTTP layer
@@ -113,32 +118,127 @@ def make_decode(mcfg: burnin.BurninConfig, device: torch.device,
     returns the ``[slots]`` int32 next ids on the host. With
     ``telemetry``, its upload, dispatch and sync are spans.
 
-    The forward attends over the whole buffer but runs the block's tail
-    and the LM head on the one row each slot reads (``burnin.forward``'s
-    ``at``); the dispatch span carries that row count as ``tail_rows``.
+    Each slot's keys and values stay on the card, in bf16 ``[slots, seq,
+    H, d_head]`` caches the first call allocates, keyed by content: a
+    host mirror holds the tokens whose keys and values each cache row
+    holds. A call projects, for each slot, the rows from the first
+    position at which the buffer differs from the mirror through
+    ``pos[s]`` (that row always: its query is needed), all slots' rows in
+    one K and one V product (padded to a power of two rows with repeats of
+    the last), and uploads only those rows' tokens and
+    positions. A causal model's state at position j depends on tokens
+    0..j alone, so this is exact whatever the engine did to the buffer:
+    admission, eviction, a reseated slot sharing a prefix, an altered
+    token. In this one-layer block nothing after attention reads the rows
+    before ``pos``, so they need only the embedding, the norm and the K
+    and V products. Q is projected for the read rows alone; one query row
+    a slot attends its cached keys (``kernels.decode_attention``, the
+    hand-written kernel where ``mcfg.attention`` is "flash", its plain
+    version otherwise), and the block's tail and the LM head run on those
+    rows (``burnin.block_tail``, shared with ``burnin.forward``). The
+    dispatch span carries ``tail_rows``, ``projected_rows`` (rows whose
+    keys and values the call computed) and ``cached_rows`` (rows attended
+    from the cache as it was).
+
+    The cache holds keys and values of the first call's ``params``: a
+    later call with another parameters object raises ValueError (build
+    another decode for other weights). The mirror takes a call's rows
+    only once its result is back on the host, so a call that raises
+    leaves them to be projected again.
 
     Causal attention means positions > pos cannot leak into the logits at
     pos, so pad tokens in the buffer tail are inert and every slot decodes
     independently of its batch neighbours (slot isolation — the property
     that makes mid-batch admission/eviction sound)."""
+    slots, seq = mcfg.batch, mcfg.seq
+    heads, d_head = mcfg.n_heads, mcfg.d_model // mcfg.n_heads
+    scale = 1.0 / math.sqrt(d_head)
+    kernel = mcfg.attention == "flash"
+    bf16 = torch.bfloat16
+    cols = np.arange(seq)
+    # mirror[s, :filled[s]] are the tokens whose keys and values the cache
+    # rows 0..filled[s]-1 of slot s hold; rows past filled[s] hold nothing
+    mirror = np.zeros((slots, seq), dtype=np.int32)
+    filled = np.zeros(slots, dtype=np.int64)
+    cache: List[torch.Tensor] = []
+    weights: List[Dict[str, torch.Tensor]] = []   # the params it holds
 
     def decode(params: Dict[str, torch.Tensor], tokens: np.ndarray,
                pos: np.ndarray) -> np.ndarray:
+        if not weights:
+            weights.append(params)
+        elif params is not weights[0]:
+            raise ValueError("decode: the K/V cache holds keys and values "
+                             "of the first call's params; build another "
+                             "decode for other weights")
+        pos = np.asarray(pos, dtype=np.int64)
         with _telemetry.maybe_span(telemetry, _UPLOAD, "serving"):
-            toks = torch.from_numpy(tokens).to(device)
-            at = torch.from_numpy(pos).to(device=device, dtype=torch.long)
+            # each slot's first row to project: its first token that
+            # differs from the mirror, or pos itself
+            stale = (tokens != mirror) | (cols >= np.minimum(filled, pos)[
+                :, None])
+            start = stale.argmax(axis=1)
+            counts = pos - start + 1
+            ends = np.cumsum(counts)
+            slot_of = np.repeat(np.arange(slots), counts)
+            at = np.arange(ends[-1]) - np.repeat(ends - counts - start,
+                                                 counts)
+            rows = tokens[slot_of, at]
+            n = len(rows)
+            # the rows padded to a power of two with repeats of the last
+            # (its keys and values written again): the products take a few
+            # shapes, not one a row count, and eager PyTorch pays a new
+            # shape's first call
+            m = 1 << (n - 1).bit_length()
+            pad = np.minimum(np.arange(m), n - 1)
+            # one copy: the rows' tokens, slots and positions, each slot's
+            # length and its read row's index among the projected rows
+            dev = torch.from_numpy(np.concatenate(
+                [rows[pad], slot_of[pad], at[pad], pos + 1,
+                 ends - 1]).astype(np.int64)).to(device)
         with _telemetry.maybe_span(telemetry, _DISPATCH,
                                    "serving") as dispatch:
             # grad mode is thread-local: enter inference mode on the
             # thread that runs the decode (the engine thread)
             with torch.inference_mode():
-                logits = burnin.forward(params, toks, mcfg, at=at)
-                next_ids = torch.argmax(logits, dim=-1).to(torch.int32)
+                if not cache:
+                    cache.extend([torch.zeros((slots, seq, heads, d_head),
+                                              dtype=bf16, device=device)
+                                  for _ in range(2)])
+                k_cache, v_cache = cache
+                toks, slot_d, at_d = (dev[i * m:(i + 1) * m]
+                                      for i in range(3))
+                lengths = dev[3 * m:3 * m + slots].int()
+                read = dev[3 * m + slots:]
+                x, y = burnin.block_input(params, toks)          # [m, D]
+                k_cache[slot_d, at_d] = (y @ params["wk"].to(bf16)).view(
+                    m, heads, d_head)
+                v_cache[slot_d, at_d] = (y @ params["wv"].to(bf16)).view(
+                    m, heads, d_head)
+                q = (y[read] @ params["wq"].to(bf16)).view(slots, heads,
+                                                           d_head)
+                if kernel:
+                    o = decode_attention(q, k_cache, v_cache, lengths, scale,
+                                         pos + 1)
+                else:
+                    longest = int(pos.max()) + 1
+                    o = decode_attention_reference(
+                        q, k_cache[:, :longest], v_cache[:, :longest],
+                        lengths, scale)
+                logits = burnin.block_tail(params, x[read],
+                                           o.reshape(slots, heads * d_head))
+                next_ids = torch.argmax(logits, dim=-1)
             if dispatch is not None:
                 dispatch.annotate("tail_rows", logits.shape[:-1].numel())
+                dispatch.annotate("projected_rows", n)
+                dispatch.annotate("cached_rows", int(pos.sum()) + slots - n)
         # the device-to-host copy is the iteration's sync
         with _telemetry.maybe_span(telemetry, _SYNC, "serving"):
-            return next_ids.cpu().numpy()
+            ids = next_ids.cpu().numpy().astype(np.int32)
+        # the cache holds the call's rows now
+        mirror[slot_of, at] = rows
+        filled[:] = pos + 1
+        return ids
 
     return decode
 
@@ -209,14 +309,16 @@ class InferenceEngine:
 
     def model_config(self) -> burnin.BurninConfig:
         """The served model: the serving geometry with bf16 parameters and
-        the attention the selector picks for the engine's device."""
+        the decode step's attention (:func:`make_decode`): "flash", the
+        hand-written decode-attention kernel, on CUDA at a head width it
+        is built for, whatever seq; "xla", its plain version, otherwise."""
         cfg = self.cfg
-        mcfg = burnin.BurninConfig(
+        kernel = (self.device.type == "cuda"
+                  and cfg.d_model // cfg.n_heads in SUPPORTED_HEAD_DIMS)
+        return burnin.BurninConfig(
             vocab=cfg.vocab, d_model=cfg.d_model, d_ff=cfg.d_ff,
             n_heads=cfg.n_heads, seq=cfg.seq, batch=cfg.slots,
-            param_dtype="bf16")
-        return replace(mcfg, attention=burnin.select_attention(
-            mcfg, self.device.type))
+            param_dtype="bf16", attention="flash" if kernel else "xla")
 
     def _ensure_model(self) -> Tuple[Any, Any, Any]:
         """Build params + the one-iteration decode function lazily (first
@@ -365,10 +467,11 @@ class InferenceEngine:
                 continue
             slot = free[0]
             # prefill: write the prompt into the slot's buffer rows —
-            # with the full-sequence forward there is no separate
-            # prefill computation; the request's first iteration both
-            # attends over the prompt and emits its first token, so the
-            # prefill phase is admit -> first token by definition.
+            # there is no separate prefill computation; the request's
+            # first iteration projects the prompt's keys and values (those
+            # the slot's cache does not hold already), attends over them
+            # and emits its first token, so the prefill phase is admit ->
+            # first token by definition.
             self._tokens_host[slot, :] = 0
             self._tokens_host[slot, :len(req.prompt)] = req.prompt
             self._slot_pos[slot] = len(req.prompt) - 1

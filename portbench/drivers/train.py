@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from portbench import harness, inputs, spans, work
+from portbench import harness, host, inputs, spans, work
 from portbench.reference import model as ref
 from portbench.trace import profiled, reduce, window_span
 
@@ -211,7 +211,9 @@ def run(cell: harness.Cell, device: torch.device, started: float):
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     steps = 0
+    seen = host.Watch(host.thread_ids())
     with profiled(cell.trace, tel and tel.tracer) as prof:
+        seen.open()
         with window_span():
             t0 = time.perf_counter()
             setup_s = t0 - started
@@ -225,6 +227,7 @@ def run(cell: harness.Cell, device: torch.device, started: float):
                     break
             last = float(loss)  # the sync that ends the window
             window_s = time.perf_counter() - t0
+        seen.close()
     dev_trace = reduce(prof) if prof is not None else None
     peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
             else 0)
@@ -252,4 +255,5 @@ def run(cell: harness.Cell, device: torch.device, started: float):
     ok = math.isfinite(last)
     return {"record": rec, "checks": checks,
             "correct": ok and harness.passed(checks), "attempted": steps,
-            "failed": 0 if ok else 1, "memory_peak": peak, "trace": dev_trace}
+            "failed": 0 if ok else 1, "memory_peak": peak, "trace": dev_trace,
+            "notes": seen.notes()}

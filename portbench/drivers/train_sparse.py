@@ -33,7 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from portbench import harness, inputs_sparse, spans, work_sparse
+from portbench import harness, host, inputs_sparse, spans, work_sparse
 from portbench.drivers.train import Readings, Watch, compare, half_batch
 from portbench.reference import model as ref_model
 from portbench.reference import sparse as ref
@@ -188,7 +188,9 @@ def run(cell: harness.Cell, device: torch.device, started: float):
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     steps = 0
+    seen = host.Watch(host.thread_ids())
     with profiled(cell.trace, tel and tel.tracer) as prof:
+        seen.open()
         with window_span():
             t0 = time.perf_counter()
             setup_s = t0 - started
@@ -203,6 +205,7 @@ def run(cell: harness.Cell, device: torch.device, started: float):
                     break
             last = float(loss)  # the sync that ends the window
             window_s = time.perf_counter() - t0
+        seen.close()
     dev_trace = reduce(prof) if prof is not None else None
     peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
             else 0)
@@ -220,7 +223,7 @@ def run(cell: harness.Cell, device: torch.device, started: float):
     rec = {"kind": "train", "setup_s": setup_s, "window_s": window_s,
            "steps": steps, **_record_work(cell), "trace": dev_trace,
            **spans.record_keys(prof, tel and tel.tracer)}
-    notes = {"loss_gap": got["loss_gap"],
+    notes = {**seen.notes(), "loss_gap": got["loss_gap"],
              **{k: v for k, v in counted.items() if k != "dropped_tokens"}}
     if "timeline" in rec:
         from portbench.metrics import _moe

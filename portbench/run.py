@@ -30,11 +30,12 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
-    from portbench import harness
+    from portbench import harness, host
 
     cell = harness.load_cell(args.workload, args.seed, args.seconds,
                              bool(args.trace))
     harness.pin_caches()
+    placed = host.placement()
     try:
         harness.require_card(cell.chips)
     except harness.NoCard as exc:
@@ -59,7 +60,7 @@ def main(argv=None) -> int:
     metrics = harness.read_metrics(cell.name, section, out["record"])
     device = harness.device_info(out["memory_peak"], out["trace"])
     breakdown = out["trace"].breakdown() if out["trace"] is not None else None
-    for key, value in out.get("notes", {}).items():
+    for key, value in {**placed, **out.get("notes", {})}.items():
         print(f"note {key}: {value!r}", file=sys.stderr)
     print(harness.check_lines(out["checks"]), file=sys.stderr)
     print(harness.result_line(out["correct"], out["attempted"], out["failed"],

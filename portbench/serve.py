@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from portbench import harness, inputs, spans, traffic
+from portbench import harness, host, inputs, spans, traffic
 from portbench.reference import engine_weights
 from portbench.reference import model as ref
 from portbench.trace import profiled, reduce, window_span
@@ -61,9 +61,17 @@ def start_engine(cell: harness.Cell, device: torch.device, warm_prompt):
                                   device=device, spans=cell.trace).start()
     warm = eng.submit(warm_prompt, max_new_tokens=cell.traffic["warm_tokens"],
                       deadline_s=600.0)
-    if not warm.done.wait(600.0) or warm.status != "ok":
+    deadline = time.monotonic() + 600.0
+    # the engine's thread may die in its first step (a kernel that fails
+    # to build): then nothing finishes the request
+    while not warm.done.wait(1.0) and eng._thread.is_alive() \
+            and time.monotonic() < deadline:
+        pass
+    if warm.status != "ok":
+        why = warm.status or ("unfinished" if eng._thread.is_alive()
+                              else "unfinished: the engine thread died")
         eng.stop()
-        raise RuntimeError(f"warm-up request ended {warm.status or 'unfinished'}")
+        raise RuntimeError(f"warm-up request ended {why}")
     return eng
 
 
@@ -75,7 +83,11 @@ class Sent:
 
 class Sender(threading.Thread):
     """Sends the plan: open, each request when due (``t_base + at``);
-    saturated, whenever fewer than ``depth`` requests wait."""
+    saturated, whenever fewer than ``depth`` requests wait, looking every
+    ``POLL_S``. Counts its wake-ups and, saturated, the least queue depth
+    it saw since :meth:`mark`."""
+
+    POLL_S = 0.002
 
     def __init__(self, eng, plan: List[traffic.Planned], deadline_s: float,
                  t_base: float = 0.0, depth: int = 0) -> None:
@@ -85,35 +97,65 @@ class Sender(threading.Thread):
         self.sent: List[Sent] = []
         self.stop = threading.Event()
         self.error: Optional[BaseException] = None
-        self.exhausted_at: Optional[float] = None
+        self.wakeups = 0
+        self.least_depth = depth
+        # (monotonic time, the engine's decoded tokens) at the start and
+        # when the plan ran out
+        self.started: Tuple[float, int] = (0.0, 0)
+        self.exhausted: Optional[Tuple[float, int]] = None
+
+    def mark(self) -> None:
+        self.least_depth = self.depth
 
     def _send(self, item: traffic.Planned, due: float) -> None:
         req = self.eng.submit(item.prompt, max_new_tokens=item.max_new,
                               deadline_s=self.deadline_s)
         self.sent.append(Sent(due, req))
 
+    def _room(self) -> bool:
+        """Wait until fewer than ``depth`` requests wait; False once
+        stopped."""
+        while True:
+            depth = self.eng.queue_depth()
+            self.least_depth = min(self.least_depth, depth)
+            if depth < self.depth:
+                return True
+            if self.stop.wait(self.POLL_S):
+                return False
+            self.wakeups += 1
+
     def run(self) -> None:
+        self.started = (time.monotonic(), self.eng.decoded_tokens)
         try:
             for item in self.plan:
                 if self.depth:
-                    while self.eng.queue_depth() >= self.depth:
-                        if self.stop.wait(0.002):
-                            return
+                    if not self._room():
+                        return
                     self._send(item, time.monotonic())
                 else:
                     due = self.t_base + item.at
                     wait = due - time.monotonic()
                     if self.stop.wait(max(0.0, wait)):
                         return
+                    self.wakeups += 1
                     self._send(item, due)
-            self.exhausted_at = time.monotonic()
+            self.exhausted = (time.monotonic(), self.eng.decoded_tokens)
         except BaseException as exc:  # reported by the main thread
             self.error = exc
+
+    def ran_out(self) -> str:
+        """What the plan's running out says: when, and at what rate the
+        engine decoded until then."""
+        (t0, n0), (t1, n1) = self.started, self.exhausted
+        return (f"the traffic plan's {len(self.plan)} requests ran out "
+                f"{t1 - t0:.1f} s after the first was sent, at "
+                f"{(n1 - n0) / max(t1 - t0, 1e-9):.1f} decoded tokens/s")
 
 
 def _snapshot(eng, sender: Sender) -> Dict[str, Any]:
     return {"decoded": eng.decoded_tokens,
             "iterations": len(eng._occupancy_samples),
+            "wakeups": sender.wakeups,
             "tokens": {id(s.req): len(s.req.tokens) for s in list(sender.sent)}}
 
 
@@ -193,17 +235,30 @@ def run(cell: harness.Cell, device: torch.device, started: float):
                     time.sleep(0.01)
                     if sender.error is not None:
                         raise sender.error
+                    if sender.exhausted is not None:
+                        raise RuntimeError(f"{sender.ran_out()}, before the "
+                                           f"window opened")
                 t0 = time.monotonic()
             else:
                 t0 = sender.t_base + mix["arrivals"]["lead_in_s"]
+            watch = host.Watch(host.thread_ids(engine=eng._thread,
+                                               sender=sender))
+            watch.open()
             time.sleep(max(0.0, t0 - time.monotonic()))
             with window_span():
                 t0 = time.monotonic()
                 setup_s = time.perf_counter() - started
+                sender.mark()
                 before = _snapshot(eng, sender)
-                time.sleep(cell.seconds)
+                fifths = []
+                for i in range(1, 6):
+                    time.sleep(max(0.0, t0 + cell.seconds * i / 5
+                                   - time.monotonic()))
+                    fifths.append(eng.decoded_tokens)
                 after = _snapshot(eng, sender)
+                least_depth = sender.least_depth
                 t1 = time.monotonic()
+            watch.close()
             if saturated:
                 judged = [s for s in list(sender.sent) if s.req.finished_ts
                           is not None and t0 <= s.req.finished_ts <= t1]
@@ -225,8 +280,9 @@ def run(cell: harness.Cell, device: torch.device, started: float):
         eng.stop()
     if sender.error is not None:
         raise sender.error
-    if sender.exhausted_at is not None and sender.exhausted_at < t1:
-        raise RuntimeError("the traffic plan ran out before the window closed")
+    if sender.exhausted is not None and sender.exhausted[0] < t1:
+        raise RuntimeError(f"{sender.ran_out()}, {t1 - sender.exhausted[0]:.1f}"
+                           f" s before the window closed")
     peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
             else 0)
 
@@ -260,13 +316,22 @@ def run(cell: harness.Cell, device: torch.device, started: float):
     }
     failed = sum(1 for r in rows if r["status"] != "ok")
     lateness = [r["submitted"] - r["due"] for r in rows]
+    notes = {"generator_late_max_s": max(lateness, default=0.0),
+             "checked_requests": len(sequences),
+             "checked_tokens": sum(len(t) for _, t in sequences),
+             **watch.notes(),
+             "engine_iterations": after["iterations"] - before["iterations"],
+             # decoded tokens in each fifth of the window: a rate that
+             # holds within a run and differs between runs is the host's
+             "decoded_by_fifth": [int(x) for x in np.diff(
+                 [before["decoded"], *fifths])],
+             "sender_wakeups": after["wakeups"] - before["wakeups"]}
+    if saturated:
+        notes["least_queue_depth"] = least_depth
     return {"record": rec, "checks": checks,
             "correct": harness.passed(checks) and bool(sequences),
             "attempted": len(rows), "failed": failed, "memory_peak": peak,
-            "trace": dev_trace,
-            "notes": {"generator_late_max_s": max(lateness, default=0.0),
-                      "checked_requests": len(sequences),
-                      "checked_tokens": sum(len(t) for _, t in sequences)}}
+            "trace": dev_trace, "notes": notes}
 
 
 # ------------------------------------------------------------ calibration
